@@ -3,27 +3,47 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line with its seconds:
   1. device: the card's name, and ``nvidia-smi``'s name and power limit
      (also printed raw on a line of its own);
   2. build: every kernel in photogrammetry_tpu_torch/csrc, one nvcc each,
      all at once, with the build time and ptxas's register report;
-  3. parity: each kernel against its plain PyTorch version on the card, at
-     the main path's shapes (a rendered 1080x1920 frame, its 2048 keypoints
-     and 256 BRIEF pairs, the 2048x2048 Hamming matrix) and at ragged ones;
-     all outputs are integers and must be bit-exact;
-  4. slice: frames 0 and 2 of a 1080x1920 star-scene pan through
-     ``entry.forward`` with the kernels, launch counts set to 0 just before
-     and read just after; then the same with the plain versions on the card
-     under the same generator seed: keypoints, bits and matches identical,
-     poses equal; >= 30 matches and rotation error < 5 deg against ground
-     truth;
-  5. timing: each kernel, its plain version and (for Hamming)
-     ``torch.cdist(p=0)`` as device busy time per call (torch.profiler) and
-     as CUDA-event time per call in a loop (host dispatch included), each
-     beside its bound from the bytes moved and the operations done; the
-     1080p frontend's frames/s and the two-view pair latency (host clock),
-     with device busy time, idle share and top device ops.
+  3. render: the 12-frame star-scene pan at 1080x1920, focal 1560,
+     rendered once in a process pool (the two-view slice takes its frames
+     0 and 2, the SfM phase all 12);
+  4. parity: FAST, BRIEF and Hamming against their plain PyTorch versions
+     on the card, at the two-view slice's shapes (a rendered frame, its
+     2048 keypoints and 256 BRIEF pairs, the 2048x2048 Hamming matrix)
+     and at ragged ones; all outputs are integers and must be bit-exact;
+  5. schur_parity: the Schur kernel against its plain einsums at the
+     SfM path's F=12/T=1024, bench_all.py's F=16/T=4096 and a ragged
+     F=5/T=700: every element within 3T * 2^-23 * (|A| |B|^T), the
+     worst-case f32 bound of a 3T-term sum, and the same bits twice;
+  6. slice: the two frames through ``entry.forward`` with the kernels,
+     launch counts set to 0 just before and read just after; then the
+     same with the plain versions on the card under the same generator
+     seed: keypoints, bits and matches identical, poses equal; >= 30
+     matches and rotation error < 5 deg against ground truth;
+  7. sfm: ``run_incremental_sfm_robust(restarts=3)`` (``run_sfm
+     --restarts 3``'s configuration) on the 12 frames at SFM_SEED with
+     the kernels,
+     launch counts set to 0 just before and read just after (every one of
+     the four kernels must have launched), then with ``plain=True`` under
+     the same seed; the batched frontend's features identical kernel vs
+     plain; ATE < 0.2 scene units and > 80 landmarks in both runs (the
+     bounds of tests/test_incremental.py); the largest camera-center
+     difference between the two runs is printed, not gated;
+  8. timing: each kernel, its plain version and, where one exists, one
+     PyTorch call computing the same function (Hamming: ``cdist(p=0)``;
+     Schur: two matmuls on operands already flattened to (6F, 3T)), as
+     device busy time per call (torch.profiler) and as CUDA-event time per
+     call in a loop (host dispatch included), each beside its bound from
+     the bytes moved and the operations done; the 1080p frontend's
+     frames/s and the two-view pair latency; ``bundle_adjust`` at F=16,
+     T=4096, 10 iterations (bench_all.py's problem) in iterations/s with
+     the kernel and plain; one 12-frame ``run_incremental_sfm`` after a
+     warm-up: frames/s from its wall time, device busy time, idle share
+     and top device ops.
 Then the ``{"kernels": [...]}`` line and, last, the ok line.  Any failure
 raises and exits non-zero before the ok line.  Needs one CUDA card; exits
 2 without one.
@@ -47,6 +67,16 @@ FOCAL = 1560.0   # the 640-px scene's 520 scaled with the width
 MAX_KEYPOINTS = 2048
 TWO_VIEW = dict(threshold=1.5, num_samples=2000, h_samples=500,
                 model="auto")
+SFM_FRAMES = 12     # the pan; the two-view slice takes its frames 0 and 2
+# The RANSAC seed of the SfM phase.  At 1080p this pan bootstraps from ~12
+# landmarks and often lands in a bad basin: on an NVIDIA H100 80GB HBM3 at
+# 700 W, 10 of 16 single-run seeds and 5 of 6 best-of-3 seeds met both
+# bounds (cli/sweep_sfm_seeds.py), and seed 0 misses ATE 0.2 with the
+# kernels and plain alike (0.299 / 0.290; see PERF.md).
+SFM_SEED = 1
+# (F cameras, T landmarks): the SfM path's window and track capacity,
+# bench_all.py's BA problem, and a ragged shape
+SCHUR_SHAPES = ((12, 1024), (16, 4096), (5, 700))
 
 
 def emit(obj) -> None:
@@ -123,17 +153,35 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def render_pair(i: int = 0, j: int = 2):
+def _render_one(i: int):
+    """Frame ``i`` of the 12-frame 1080p pan (a pool worker)."""
     from photogrammetry_tpu_torch.synth.star_scene import (
         StarSceneConfig, intrinsics, pan_trajectory, render_frame,
     )
 
-    cfg = StarSceneConfig(image_size=FRAME_SHAPE, focal=FOCAL)
+    cfg = StarSceneConfig(num_frames=SFM_FRAMES, image_size=FRAME_SHAPE,
+                          focal=FOCAL)
     rs, ts, _ = pan_trajectory(cfg)
-    k = intrinsics(cfg)
-    frames = [render_frame(cfg, rs[n], ts[n], k).astype(np.float32)
-              for n in (i, j)]
-    return frames, k, rs[j] @ rs[i].T
+    return render_frame(cfg, rs[i], ts[i], intrinsics(cfg))
+
+
+def render_sequence():
+    """The 12-frame 1080p pan, rendered in a spawn pool: uint8 frames
+    (F, H, W), K, ground-truth rotations and camera centers."""
+    import multiprocessing
+    import os
+
+    from photogrammetry_tpu_torch.synth.star_scene import (
+        StarSceneConfig, intrinsics, pan_trajectory,
+    )
+
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(SFM_FRAMES, os.cpu_count() or 1)) as pool:
+        frames = np.stack(pool.map(_render_one, range(SFM_FRAMES)))
+    cfg = StarSceneConfig(num_frames=SFM_FRAMES, image_size=FRAME_SHAPE,
+                          focal=FOCAL)
+    rs, _, centers = pan_trajectory(cfg)
+    return frames, intrinsics(cfg), rs, centers
 
 
 def max_err(a, b) -> float:
@@ -144,7 +192,7 @@ def max_err(a, b) -> float:
 
 
 def check_kernels(dev, frames, pairs, cfg):
-    """Phase 3: each kernel against its plain version on ``dev``; returns
+    """Phase 4: each kernel against its plain version on ``dev``; returns
     the worst |kernel - plain| per kernel (0 for bit-exact)."""
     import torch
 
@@ -218,7 +266,7 @@ def check_kernels(dev, frames, pairs, cfg):
 
 
 def drive_main_path(dev, frames, k, r_gt, pairs, cfg, counters):
-    """Phase 4: the forward step with the kernels (launches counted) and
+    """Phase 6: the forward step with the kernels (launches counted) and
     with the plain versions, under the same generator seed."""
     import torch
 
@@ -276,9 +324,27 @@ def drive_main_path(dev, frames, k, r_gt, pairs, cfg, counters):
     return out, launches
 
 
+def time_row(row) -> dict:
+    """Times of one kernel row: ms / plain_ms / library_ms are device busy
+    time per call (profiler); *_call_ms the CUDA-event time per call in a
+    back-to-back loop, which includes the host's dispatch gaps when they
+    outlast the device work.  The bound comes from the row's bytes and
+    operations."""
+    b_ms, b_by = bound_ms(row["bytes"], row["ops"])
+    t = dict(bound_ms=b_ms, bound_by=b_by, bytes=row["bytes"],
+             ops=row["ops"], library_ms=None, library_call_ms=None)
+    for key in ("run", "plain", "library"):
+        if row[key] is None:
+            continue
+        pre = {"run": "", "plain": "plain_", "library": "library_"}[key]
+        t[pre + "ms"] = device_profile(row[key])[0]
+        t[pre + "call_ms"] = cuda_ms(row[key])
+    return t
+
+
 def time_all(dev, frames, k, pairs, cfg, out):
-    """Phase 5: kernel, plain and library times with their bounds; the
-    frontend's frames/s and the pair latency."""
+    """Phase 8, two-view part: kernel, plain and library times with their
+    bounds; the frontend's frames/s and the pair latency."""
     import torch
 
     from photogrammetry_tpu_torch.entry import forward
@@ -326,21 +392,7 @@ def time_all(dev, frames, k, pairs, cfg, out):
             bytes=(n1 + n2) * p + n1 + n2 + n1 * n2 * 4,
             ops=n1 * n2 * words * 3),
     }
-    # ms / plain_ms / library_ms: device busy time per call (profiler);
-    # *_call_ms: CUDA-event time per call in a back-to-back loop, which
-    # includes the host's dispatch gaps when they outlast the device work
-    timings = {}
-    for name, row in rows.items():
-        b_ms, b_by = bound_ms(row["bytes"], row["ops"])
-        t = dict(bound_ms=b_ms, bound_by=b_by, bytes=row["bytes"],
-                 ops=row["ops"], library_ms=None, library_call_ms=None)
-        for key in ("run", "plain", "library"):
-            if row[key] is None:
-                continue
-            pre = {"run": "", "plain": "plain_", "library": "library_"}[key]
-            t[pre + "ms"] = device_profile(row[key])[0]
-            t[pre + "call_ms"] = cuda_ms(row[key])
-        timings[name] = t
+    timings = {name: time_row(row) for name, row in rows.items()}
     emit({"phase": "timing", "kernels": timings,
           "brief_distinct_pixels": touched})
 
@@ -369,6 +421,201 @@ def time_all(dev, frames, k, pairs, cfg, out):
     return timings
 
 
+def schur_inputs(dev, f: int, t: int, seed: int):
+    """Random (w_hinv, w_cp, b_p) of the Schur products at F, T."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev)
+            for shape in ((f, t, 6, 3), (f, t, 6, 3), (t, 3))]
+
+
+def check_schur(dev) -> float:
+    """Phase 5: the Schur kernel against its plain einsums at
+    SCHUR_SHAPES, within the worst-case f32 bound, and bitwise repeatable;
+    returns the largest |kernel - plain| over the shapes."""
+    import torch
+
+    from photogrammetry_tpu_torch.kernels import schur
+
+    cases = []
+    for f, t in SCHUR_SHAPES:
+        args = schur_inputs(dev, f, t, seed=f * t)
+        got = schur.schur_products(*args)
+        again = schur.schur_products(*args)
+        ref = schur.schur_products_plain(*args)
+        bounds = schur.error_bound(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ratio = max(float(((g.double() - r.double()).abs()
+                           / b.clamp(min=1e-30)).max())
+                    for g, r, b in zip(got, ref, bounds))
+        cases.append(dict(shape=[f, t], max_abs_err=max(
+            max_err(g, r) for g, r in zip(got, ref)),
+            max_err_over_bound=ratio,
+            repeatable=all(torch.equal(a, b) for a, b in zip(got, again))))
+    emit({"phase": "schur_parity", "cases": cases})
+    bad = [c for c in cases
+           if not c["max_err_over_bound"] <= 1.0 or not c["repeatable"]]
+    if bad:
+        raise AssertionError(f"Schur kernel outside its bound: {bad}")
+    return max(c["max_abs_err"] for c in cases)
+
+
+def drive_sfm(dev, frames, k, centers, counters):
+    """Phase 7: the robust incremental SfM through the kernels (launches
+    counted) and with the plain versions, under the same seed."""
+    import torch
+
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        make_pairs, precompute_frontend,
+    )
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm_robust,
+    )
+    from photogrammetry_tpu_torch.sfm.metrics import (
+        absolute_trajectory_error,
+    )
+
+    cfg = SfmConfig(collect_diagnostics=False)    # run_sfm's configuration
+
+    def run(plain):
+        t0 = time.perf_counter()
+        res = run_incremental_sfm_robust(frames, k, cfg, seed=SFM_SEED,
+                                         restarts=3, device=dev,
+                                         plain=plain)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ate = float(absolute_trajectory_error(
+            torch.tensor(res.camera_centers, dtype=torch.float64),
+            torch.tensor(centers, dtype=torch.float64)))
+        return res, dict(seconds=time.perf_counter() - t0, ate=ate,
+                         landmarks=len(res.points), quality=res.quality,
+                         final_cost=res.costs[-1])
+
+    for c in counters.values():
+        c.launches = 0
+    out, stats = run(plain=False)
+    launches = {name: c.launches for name, c in counters.items()}
+    ref, ref_stats = run(plain=True)
+
+    # the batched frontend of both runs, on the same frames and pairs
+    frames_t = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+    pairs = make_pairs(cfg.frontend, device=dev)
+    fa, fb = (precompute_frontend(frames_t, pairs, cfg.frontend,
+                                  chunk=cfg.frontend_chunk, plain=plain)
+              for plain in (False, True))
+    same = all(torch.equal(a, b) for a, b in
+               zip([*fa.points, fa.bits, fa.xy], [*fb.points, fb.bits,
+                                                  fb.xy]))
+    result = {"phase": "sfm", "frames": list(frames.shape),
+              "kernels": stats, "plain": ref_stats,
+              "features_identical": same,
+              "keypoints_per_frame": fa.points.count.tolist(),
+              "max_center_diff_kernel_vs_plain": float(np.abs(
+                  out.camera_centers - ref.camera_centers).max()),
+              "launches": launches}
+    emit(result)
+    if not same:
+        raise AssertionError("batched frontend differs kernel vs plain")
+    for st in (stats, ref_stats):
+        if not st["ate"] < 0.2 or st["landmarks"] <= 80:
+            raise AssertionError(f"SfM out of bounds: {st}")
+    missing = [n for n, v in launches.items() if v < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched on the SfM path: "
+                             f"{missing}")
+    return launches
+
+
+def time_sfm(dev, frames, k):
+    """Phase 8, SfM part: the Schur kernel at the SfM path's and
+    bench_all.py's shapes; bundle_adjust iterations/s; one
+    run_incremental_sfm's frames/s, busy time and idle share."""
+    import torch
+
+    from photogrammetry_tpu_torch.kernels import schur
+    from photogrammetry_tpu_torch.sfm.ba import (
+        BAProblem, BAState, bundle_adjust, project,
+    )
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm,
+    )
+
+    rows = {}
+    for f, t in SCHUR_SHAPES[:2]:
+        args = schur_inputs(dev, f, t, seed=f * t)
+        # the library yardstick runs on operands flattened to (6F, 3T)
+        # beforehand: the flattening is not in its time
+        a, b = (x.permute(0, 2, 1, 3).reshape(6 * f, 3 * t).contiguous()
+                for x in args[:2])
+        bp = args[2].reshape(-1)
+        rows[f"F{f}_T{t}"] = time_row(dict(
+            run=lambda args=args: schur.schur_products(*args),
+            plain=lambda args=args: schur.schur_products_plain(*args),
+            library=lambda a=a, b=b, bp=bp: (torch.matmul(a, b.T), a @ bp),
+            bytes=2 * (6 * f * 3 * t) * 4 + 3 * t * 4 + (6 * f) ** 2 * 4
+            + 6 * f * 4,
+            ops=2 * (6 * f) ** 2 * 3 * t + 2 * 6 * f * 3 * t))
+    emit({"phase": "timing_schur", "rows": rows})
+
+    # bench_all.py:92-109's BA problem: 16 cameras x 4096 landmarks
+    f, t, iters = 16, 4096, 10
+    rng = np.random.default_rng(0)
+    kb = torch.tensor([[520.0, 0, 320], [0, 520.0, 240], [0, 0, 1]],
+                      device=dev)
+    pts = torch.tensor(rng.uniform(-2, 2, (t, 3)) + [0, 0, 6],
+                       dtype=torch.float32, device=dev)
+    rs = torch.eye(3, device=dev).repeat(f, 1, 1)
+    ts = torch.tensor(rng.normal(0, 0.1, (f, 3)), dtype=torch.float32,
+                      device=dev)
+    obs = project(rs, ts, pts, kb)[0] + torch.tensor(
+        rng.normal(0, 0.5, (f, t, 2)), dtype=torch.float32, device=dev)
+    state = BAState(rs=rs, ts=ts, points=pts + torch.tensor(
+        rng.normal(0, 0.05, (t, 3)), dtype=torch.float32, device=dev))
+    prob = BAProblem(obs=obs, mask=torch.ones((f, t), dtype=torch.bool,
+                                              device=dev), k=kb)
+    ba = {}
+    for plain in (False, True, True, False):    # in turns
+        label = "plain" if plain else "kernel"
+
+        def call(plain=plain):
+            return bundle_adjust(state, prob, num_iterations=iters,
+                                 plain=plain)
+
+        ms = host_ms(call, reps=5)
+        ba.setdefault(label, []).append(ms)
+    result = {"phase": "timing_ba", "cameras": f, "landmarks": t,
+              "iterations": iters}
+    for label, ms in ba.items():
+        busy, top = device_profile(
+            lambda plain=(label == "plain"): bundle_adjust(
+                state, prob, num_iterations=iters, plain=plain),
+            iters=2, top=6)
+        result[label] = dict(wall_ms=ms, iters_per_s=[iters * 1e3 / m
+                                                      for m in ms],
+                             device_busy_ms=busy, top_device_ops=top)
+    emit(result)
+
+    cfg = SfmConfig(collect_diagnostics=False)
+    sfm = {"phase": "timing_sfm", "frames": list(frames.shape)}
+    for label, plain in (("kernel", False), ("plain", True)):
+        def run(plain=plain):
+            return run_incremental_sfm(frames, k, cfg, seed=SFM_SEED,
+                                       device=dev, plain=plain)
+
+        wall = host_ms(run, reps=1)
+        entry = dict(wall_ms=wall, frames_per_s=len(frames) * 1e3 / wall)
+        if not plain:
+            busy, top = device_profile(run, iters=1, top=10)
+            entry.update(device_busy_ms=busy,
+                         device_idle_share=max(0.0, 1 - busy / wall),
+                         top_device_ops=top)
+        sfm[label] = entry
+    emit(sfm)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -377,7 +624,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     from photogrammetry_tpu_torch.kernels import (
-        _build, brief_pack, fast_stencil, hamming,
+        _build, brief_pack, fast_stencil, hamming, schur,
     )
     from photogrammetry_tpu_torch.sfm.frontend import (
         FrontendConfig, make_pairs,
@@ -402,24 +649,39 @@ def main() -> int:
                     for n, log in logs.items()}})
 
     t0 = time.perf_counter()
-    frames, k, r_gt = render_pair()
+    seq, k, rs_gt, centers = render_sequence()
+    frames = [seq[0].astype(np.float32), seq[2].astype(np.float32)]
+    r_gt = rs_gt[2] @ rs_gt[0].T
     emit({"phase": "render", "seconds": time.perf_counter() - t0,
-          "shape": list(frames[0].shape)})
+          "shape": list(seq.shape)})
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        emit({"phase_seconds": label, "seconds": time.perf_counter() - t0})
+        return out
 
     cfg = FrontendConfig(detection_threshold=50.0,
                          max_keypoints=MAX_KEYPOINTS, reduction="nms",
                          suppression_radius=4.0)
     pairs = make_pairs(cfg, device=dev)
-    errs = check_kernels(dev, frames, pairs, cfg)
+    errs = timed("parity", check_kernels, dev, frames, pairs, cfg)
+    errs["schur"] = timed("schur_parity", check_schur, dev)
 
     modules = {"fast_score": fast_stencil, "brief_bits": brief_pack,
-               "hamming": hamming}
+               "hamming": hamming, "schur": schur}
     counters = {"fast_score": fast_stencil.fast_score_map_batch,
                 "brief_bits": brief_pack.brief_bits,
-                "hamming": hamming.hamming_distance_matrix}
-    out, launches = drive_main_path(dev, frames, k, r_gt, pairs, cfg,
-                                    counters)
-    timings = time_all(dev, frames, k, pairs, cfg, out)
+                "hamming": hamming.hamming_distance_matrix,
+                "schur": schur.schur_products}
+    out, launches_forward = timed(
+        "slice", drive_main_path, dev, frames, k, r_gt, pairs, cfg,
+        {n: counters[n] for n in ("fast_score", "brief_bits", "hamming")})
+    launches = timed("sfm", drive_sfm, dev, seq, k, centers, counters)
+    timings = timed("timing", time_all, dev, frames, k, pairs, cfg, out)
+    schur_rows = timed("timing_sfm", time_sfm, dev, seq, k)
+    # the Schur kernel's row is taken at the SfM path's shape
+    timings["schur"] = schur_rows["F%d_T%d" % SCHUR_SHAPES[0]]
 
     emit({"kernels": [
         dict(name=n, route="cuda", source=modules[n].SOURCE,
@@ -428,10 +690,11 @@ def main() -> int:
              plain_ms=timings[n]["plain_ms"],
              bound_ms=timings[n]["bound_ms"],
              bound_by=timings[n]["bound_by"],
-             library_ms=timings[n]["library_ms"], parity_ok=errs[n] == 0,
+             library_ms=timings[n]["library_ms"],
              call_ms=timings[n]["call_ms"],
              plain_call_ms=timings[n]["plain_call_ms"],
-             library_call_ms=timings[n]["library_call_ms"])
+             library_call_ms=timings[n]["library_call_ms"],
+             launches_forward=launches_forward.get(n, 0))
         for n in counters]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

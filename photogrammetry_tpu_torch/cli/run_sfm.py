@@ -1,0 +1,156 @@
+"""Run incremental SfM over an image sequence; export trajectory + cloud
+(port of photogrammetry_tpu/cli/run_sfm.py, default path).
+
+    python -m photogrammetry_tpu_torch.cli.run_sfm [FRAMES_DIR] \\
+        [--synthetic-frames 8] [--restarts 3] [--device cuda]
+
+A directory of frames (sorted), or the built-in synthetic star pan with
+exact ground truth for an ATE report → ``run_incremental_sfm`` (or its
+best-of-``--restarts`` form) → ``cloud.ply`` + ``trajectory.json`` and
+one JSON report line.  The JAX CLI's other modes (dewarp, loop closure,
+submaps, keyframes, mesh, checkpoint, pyramid, oriented BRIEF,
+precompute-matching) are not ported: their flags raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+NOT_PORTED = ("--distortion-coeffs", "--dewarp-cache", "--loop-closure",
+              "--loop-min-gap", "--loop-min-matches", "--loop-max-edges",
+              "--loop-mode", "--submap-frames", "--submap-overlap",
+              "--submap-prior-weight", "--submap-refine", "--keyframe-disp",
+              "--mesh", "--checkpoint", "--no-resume", "--pyramid-octaves",
+              "--oriented-brief", "--precompute-matching")
+
+
+def load_gray(path: str):
+    """An image file as float32 grayscale with OpenCV's fixed-point
+    BGR2GRAY weights (the JAX package's cli/common.py), read with Pillow
+    (imported here: only this branch needs it)."""
+    import numpy as np
+    from PIL import Image
+
+    rgb = np.asarray(Image.open(path).convert("RGB"), np.int32)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    return ((r * 4899 + g * 9617 + b * 1868 + (1 << 13)) >> 14) \
+        .astype(np.float32)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("frames", nargs="?", default=None,
+                    help="directory of image frames; omit for the synthetic "
+                         "star-pan sequence")
+    ap.add_argument("--synthetic-frames", type=int, default=8)
+    ap.add_argument("--fx", type=float, default=None)
+    ap.add_argument("--cx", type=float, default=None)
+    ap.add_argument("--cy", type=float, default=None)
+    ap.add_argument("--detection-threshold", type=float, default=20.0)
+    ap.add_argument("--frame-stride", type=int, default=1,
+                    help="temporal subsampling: keep every Nth frame")
+    ap.add_argument("--cloud", default="cloud.ply")
+    ap.add_argument("--trajectory", default="trajectory.json")
+    ap.add_argument("--stats", default=None)
+    ap.add_argument("--diagnostics", action="store_true",
+                    help="collect per-frame diagnostic counters (one host "
+                         "read each)")
+    ap.add_argument("--restarts", type=int, default=1,
+                    help=">1 runs best-of-K restarts with ground-truth-free "
+                         "quality selection")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' runs the plain "
+                         "PyTorch path)")
+    args, rest = ap.parse_known_args(argv)
+    for arg in rest:
+        if arg.split("=")[0] in NOT_PORTED:
+            raise NotImplementedError(
+                f"run_sfm {arg.split('=')[0]} is not ported yet; use "
+                f"photogrammetry_tpu.cli.run_sfm")
+    if rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+
+    import numpy as np
+    import torch
+
+    from photogrammetry_tpu_torch import resolve_device
+    from photogrammetry_tpu_torch.io.ply import write_ply
+    from photogrammetry_tpu_torch.sfm.frontend import FrontendConfig
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, reconstruction_quality, run_incremental_sfm,
+        run_incremental_sfm_robust,
+    )
+    from photogrammetry_tpu_torch.sfm.metrics import (
+        absolute_trajectory_error,
+    )
+    from photogrammetry_tpu_torch.utils.profiling import (
+        StageTimer, append_stats,
+    )
+
+    device = resolve_device(args.device)     # fail before loading frames
+    timer = StageTimer()
+    gt_centers = None
+    if args.frames is None:
+        from photogrammetry_tpu_torch.synth.star_scene import (
+            StarSceneConfig, generate_sequence,
+        )
+        scene = generate_sequence(StarSceneConfig(
+            num_frames=args.synthetic_frames, supersample=4))
+        frames, k, gt_centers = scene["frames"], scene["k"], scene["centers"]
+    else:
+        import glob
+        import os
+
+        paths = sorted(glob.glob(os.path.join(args.frames, "*")))
+        if args.frame_stride > 1:
+            paths = paths[::args.frame_stride]
+        if len(paths) < 2:
+            ap.error(f"need >= 2 frames in {args.frames} "
+                     f"(after stride {args.frame_stride})")
+        frames = np.stack([load_gray(p) for p in paths])
+        h, w = frames.shape[1:3]
+        fx = args.fx if args.fx is not None else 1.2 * w
+        if fx <= 0:
+            ap.error(f"--fx must be positive, got {fx}")
+        cx = args.cx if args.cx is not None else w / 2
+        cy = args.cy if args.cy is not None else h / 2
+        k = np.array([[fx, 0, cx], [0, fx, cy], [0, 0, 1]], np.float32)
+
+    cfg = SfmConfig(frontend=FrontendConfig(
+        detection_threshold=args.detection_threshold, max_keypoints=512,
+        reduction="nms", suppression_radius=4.0, hamming_threshold=80),
+        track_capacity=1024, collect_diagnostics=bool(args.diagnostics))
+    with timer.stage("sfm"):
+        if args.restarts > 1:
+            res = run_incremental_sfm_robust(frames, k, cfg,
+                                             restarts=args.restarts,
+                                             device=device)
+        else:
+            res = run_incremental_sfm(frames, k, cfg, device=device)
+
+    write_ply(args.cloud, res.points)
+    centers = res.camera_centers
+    traj = {"centers": centers.tolist(), "rotations": res.rs.tolist(),
+            "translations": res.ts.tolist()}
+    support, med = reconstruction_quality(res, k)
+    report = {"frames": len(frames), "landmarks": len(res.points),
+              "final_cost": res.costs[-1] if res.costs else None,
+              "timings": timer.summary(),
+              "quality": {"support": support,
+                          "median_reproj_px": round(med, 3)}}
+    if gt_centers is not None:
+        report["ate"] = float(absolute_trajectory_error(
+            torch.tensor(centers, dtype=torch.float64),
+            torch.tensor(gt_centers, dtype=torch.float64)))
+    with open(args.trajectory, "w") as fh:
+        json.dump(traj, fh)
+    print(json.dumps(report))
+    print(f"wrote {args.cloud}, {args.trajectory}")
+    if args.stats:
+        append_stats(args.stats, report)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,10 +1,13 @@
 """Carry the JAX package's state into the port.
 
 This system's "weights" are the BRIEF pair table (drawn from ``jax.random``
-by the JAX ``make_pairs``), the intrinsics K and the frontend
-configuration.  ``from_jax`` takes them as plain numpy arrays and a dict
-(``np.asarray(make_pairs(cfg))``, ``dataclasses.asdict(cfg)``), so this
-module needs no JAX.
+by the JAX ``make_pairs``), the intrinsics K and the configuration; its
+state is the track table and the BA state of a reconstruction.
+``from_jax`` takes the first as plain numpy arrays and a dict
+(``np.asarray(make_pairs(cfg))``, ``dataclasses.asdict(cfg)``);
+``state_from_jax`` takes a JAX ``TrackTable`` / ``BAState`` /
+``BAProblem`` and reads its leaves with ``np.asarray``.  So this module
+needs no JAX.
 """
 from __future__ import annotations
 
@@ -14,27 +17,67 @@ import numpy as np
 import torch
 
 from photogrammetry_tpu_torch import resolve_device
+from photogrammetry_tpu_torch.sfm.ba import BAProblem, BAState
 from photogrammetry_tpu_torch.sfm.frontend import FrontendConfig
+from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
+from photogrammetry_tpu_torch.sfm.tracks import TrackTable
 
 JAX_ONLY_KEYS = ("use_pallas_matching", "use_pallas_detect")
+# JAX SfmConfig fields the port leaves out, with their "off" values
+JAX_ONLY_SFM = {"mesh": (None,), "fused_steady_steps": (None, False),
+                "read_free": (False,), "precompute_matching": (False,),
+                "pyramid_octaves": (1,)}
+STATE_TYPES = {cls.__name__: cls for cls in (TrackTable, BAState, BAProblem)}
 
 
-def from_jax(pairs: np.ndarray, k: np.ndarray, frontend_config: dict,
-             device="cuda"):
-    """→ (pairs (P, 2, 2) int32 tensor, K (3, 3) float32 tensor,
-    FrontendConfig) on ``device``; the JAX-only ``use_pallas_*`` keys are
-    dropped."""
-    dev = resolve_device(device)
-    fields = {f.name for f in dataclasses.fields(FrontendConfig)}
-    cfg = {key: val for key, val in frontend_config.items()
-           if key not in JAX_ONLY_KEYS}
-    unknown = set(cfg) - fields
+def _config(cls, d: dict):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - fields
     if unknown:
-        raise ValueError(f"from_jax: unknown FrontendConfig keys {unknown}")
+        raise ValueError(f"from_jax: unknown {cls.__name__} keys {unknown}")
+    return cls(**d)
+
+
+def _frontend_config(d: dict) -> FrontendConfig:
+    cfg = {key: val for key, val in d.items() if key not in JAX_ONLY_KEYS}
     if "cluster_chunks" in cfg:
         cfg["cluster_chunks"] = tuple(cfg["cluster_chunks"])
+    return _config(FrontendConfig, cfg)
+
+
+def _sfm_config(d: dict) -> SfmConfig:
+    cfg = dict(d)
+    for key, off in JAX_ONLY_SFM.items():
+        if key in cfg and cfg.pop(key) not in off:
+            raise NotImplementedError(f"SfmConfig.{key}={d[key]!r} is not "
+                                      f"ported")
+    cfg["frontend"] = _frontend_config(cfg.get("frontend", {}))
+    return _config(SfmConfig, cfg)
+
+
+def from_jax(pairs: np.ndarray, k: np.ndarray, config: dict, device="cuda"):
+    """→ (pairs (P, 2, 2) int32 tensor, K (3, 3) float32 tensor, config) on
+    ``device``.  ``config`` is ``dataclasses.asdict`` of a JAX
+    FrontendConfig (→ FrontendConfig, the ``use_pallas_*`` keys dropped)
+    or of a JAX SfmConfig (→ SfmConfig, its TPU-dispatch, mesh and pyramid
+    fields dropped, NotImplementedError when one of them is on)."""
+    dev = resolve_device(device)
+    cfg = (_sfm_config(config) if "frontend" in config
+           else _frontend_config(config))
     pairs_t = torch.tensor(np.asarray(pairs, np.int32), device=dev)
     if pairs_t.dim() != 3 or pairs_t.shape[1:] != (2, 2):
         raise ValueError(f"from_jax: pairs of shape {tuple(pairs_t.shape)}")
     k_t = torch.tensor(np.asarray(k, np.float32), device=dev)
-    return pairs_t.contiguous(), k_t, FrontendConfig(**cfg)
+    return pairs_t.contiguous(), k_t, cfg
+
+
+def state_from_jax(state, device="cuda"):
+    """A JAX ``TrackTable``, ``BAState`` or ``BAProblem`` → the port's
+    NamedTuple of the same name, every leaf a tensor on ``device`` with
+    the same dtype."""
+    cls = STATE_TYPES.get(type(state).__name__)
+    if cls is None or tuple(state._fields) != cls._fields:
+        raise TypeError(f"state_from_jax: not a JAX TrackTable, BAState or "
+                        f"BAProblem: {type(state).__name__}")
+    dev = resolve_device(device)
+    return cls(*(torch.from_numpy(np.array(x)).to(dev) for x in state))

@@ -7,10 +7,14 @@ from __future__ import annotations
 
 import torch
 
+from photogrammetry_tpu_torch import resolve_device
 
-def intrinsic_matrix(fx, fy, cx, cy, device="cpu") -> torch.Tensor:
+
+def intrinsic_matrix(fx, fy, cx, cy, device="cuda") -> torch.Tensor:
+    """(3, 3) float32 K on ``device`` (default CUDA; raises without a card
+    unless ``device='cpu'``)."""
     return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],
-                        dtype=torch.float32, device=device)
+                        dtype=torch.float32, device=resolve_device(device))
 
 
 def keypoints_to_xy(coords: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,7 @@
 of photogrammetry_tpu/sfm/frontend.py).
 
   detect_and_describe: grayscale image → (keypoints, descriptor bits, xy)
+  precompute_frontend: (F, H, W) sequence → the same with a leading F axis
   match_pair:          two described frames → (xy1, xy2, mask)
 
 The three hot steps go through the hand-written kernels of ``kernels/``
@@ -88,18 +89,24 @@ def make_pairs(config: FrontendConfig, device="cuda") -> torch.Tensor:
                           num_pairs=config.num_pairs)
 
 
-def detect_keypoints(gray: torch.Tensor, config: FrontendConfig,
-                     plain: bool = False) -> PaddedPoints:
-    """score map → fixed-capacity keypoints → redundancy reduction."""
-    score_fn = (fast_stencil.fast_score_map_plain if plain
-                else fast_stencil.fast_score_map)
-    score = score_fn(gray, config.detection_threshold)
+def _detect_from_score(score: torch.Tensor,
+                       config: FrontendConfig) -> PaddedPoints:
+    """fixed-capacity keypoint extraction → redundancy reduction."""
     pts = extract_keypoints(score, config.max_keypoints)
     if config.reduction == "nms":
         pts = compact_points(
             nms_keypoints_static(pts, config.suppression_radius),
             config.max_keypoints)
     return pts
+
+
+def detect_keypoints(gray: torch.Tensor, config: FrontendConfig,
+                     plain: bool = False) -> PaddedPoints:
+    """score map → fixed-capacity keypoints → redundancy reduction."""
+    score_fn = (fast_stencil.fast_score_map_plain if plain
+                else fast_stencil.fast_score_map)
+    return _detect_from_score(score_fn(gray, config.detection_threshold),
+                              config)
 
 
 def describe_bits(gray: torch.Tensor, pts: PaddedPoints, pairs: torch.Tensor,
@@ -127,6 +134,60 @@ def detect_and_describe(gray: torch.Tensor, pairs: torch.Tensor,
     return DescribedFrame(points=pts,
                           bits=describe_bits(gray, pts, pairs, plain),
                           xy=refine_xy(gray, pts, config))
+
+
+def detect_and_describe_batch_split(grays: torch.Tensor, pairs: torch.Tensor,
+                                    config: FrontendConfig,
+                                    plain: bool = False) -> DescribedFrame:
+    """(B, H, W) float32 frames → DescribedFrame with a leading B axis on
+    every leaf.  The B score maps come from one launch of the batched FAST
+    kernel; NMS, BRIEF and refine then run frame by frame."""
+    score_fn = (fast_stencil.fast_score_map_plain if plain
+                else fast_stencil.fast_score_map_batch)
+    scores = score_fn(grays, config.detection_threshold)
+    frames = []
+    for gray, score in zip(grays, scores):
+        pts = _detect_from_score(score, config)
+        frames.append(DescribedFrame(
+            points=pts, bits=describe_bits(gray, pts, pairs, plain),
+            xy=refine_xy(gray, pts, config)))
+    return _join(frames, torch.stack)
+
+
+def _join(frames, join) -> DescribedFrame:
+    """DescribedFrames joined leaf by leaf with ``join`` (torch.stack for
+    frames, torch.cat for batches)."""
+    def leaves(f):
+        return [*f.points, f.bits, f.xy]
+
+    cols = [join(list(xs)) for xs in zip(*map(leaves, frames))]
+    return DescribedFrame(points=PaddedPoints(*cols[:4]), bits=cols[4],
+                          xy=cols[5])
+
+
+def precompute_frontend(frames: torch.Tensor, pairs: torch.Tensor,
+                        config: FrontendConfig, chunk: int = 16,
+                        octaves: int = 1,
+                        plain: bool = False) -> DescribedFrame:
+    """Whole-sequence frontend: (F, H, W) frames → DescribedFrame with a
+    leading F axis on every leaf, ``chunk`` frames per batched pass
+    (``detect_and_describe_batch_split``).  Unlike the JAX package, the
+    tail chunk is not padded to the full size: nothing is compiled per
+    shape here.  Index frame t with ``frame_features(feats, t)``."""
+    if octaves > 1:
+        raise NotImplementedError("the pyramid frontend (octaves > 1) is "
+                                  "not ported yet")
+    f = frames.shape[0]
+    chunk = max(1, min(chunk, f))
+    return _join([detect_and_describe_batch_split(frames[s:s + chunk],
+                                                  pairs, config, plain)
+                  for s in range(0, f, chunk)], torch.cat)
+
+
+def frame_features(feats: DescribedFrame, t: int) -> DescribedFrame:
+    """Select frame ``t`` from a precomputed (F-leading) DescribedFrame."""
+    return DescribedFrame(points=PaddedPoints(*(x[t] for x in feats.points)),
+                          bits=feats.bits[t], xy=feats.xy[t])
 
 
 def match_pair(f1: DescribedFrame, f2: DescribedFrame,

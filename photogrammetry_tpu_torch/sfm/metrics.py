@@ -1,0 +1,39 @@
+"""Trajectory evaluation: Umeyama alignment + ATE (port of
+photogrammetry_tpu/sfm/metrics.py)."""
+from __future__ import annotations
+
+import torch
+
+
+def align_umeyama(est: torch.Tensor, gt: torch.Tensor,
+                  with_scale: bool = True):
+    """Similarity transform (s, R, t) minimizing ||gt - (s R est + t)||.
+
+    est, gt: (N, 3) corresponding positions.
+    """
+    mu_e = est.mean(0)
+    mu_g = gt.mean(0)
+    ec = est - mu_e
+    gc = gt - mu_g
+    cov = gc.T @ ec / est.shape[0]
+    u, d, vt = torch.linalg.svd(cov)
+    ones = torch.ones(3, dtype=est.dtype, device=est.device)
+    flip = torch.tensor([1.0, 1.0, -1.0], dtype=est.dtype, device=est.device)
+    s_fix = torch.where(torch.linalg.det(u) * torch.linalg.det(vt) < 0,
+                        flip, ones)
+    r = (u * s_fix[None, :]) @ vt
+    if with_scale:
+        var_e = (ec ** 2).sum(-1).mean()
+        s = (d * s_fix).sum() / torch.clamp(var_e, min=1e-12)
+    else:
+        s = torch.ones((), dtype=est.dtype, device=est.device)
+    t = mu_g - s * (r @ mu_e)
+    return s, r, t
+
+
+def absolute_trajectory_error(est: torch.Tensor, gt: torch.Tensor,
+                              with_scale: bool = True) -> torch.Tensor:
+    """RMSE of aligned camera positions (the standard monocular ATE)."""
+    s, r, t = align_umeyama(est, gt, with_scale)
+    aligned = est @ (s * r).T + t
+    return torch.sqrt(((aligned - gt) ** 2).sum(-1).mean())

@@ -1,6 +1,6 @@
 """DLT triangulation and cheirality-based pose disambiguation (port of
 photogrammetry_tpu/sfm/triangulate.py: ``triangulate_dlt``,
-``cheirality_counts``, ``select_pose``).
+``cheirality_counts``, ``triangulate_nview``, ``select_pose``).
 
 The 4x4 null space of each point's DLT system is the smallest eigenvector
 of its Gram matrix; candidates and points are one batch.
@@ -55,6 +55,35 @@ def cheirality_counts(xy1, xy2, rs, ts, k1, k2, mask,
     if both_cameras:
         ok = ok & (pts[..., 2] > 0)
     return (ok & mask).sum(-1), pts
+
+
+def triangulate_nview(obs: torch.Tensor, obs_mask: torch.Tensor,
+                      rs: torch.Tensor, ts: torch.Tensor, k: torch.Tensor):
+    """Mask-weighted multi-view DLT over every observing frame at once:
+    each observing view adds rows u·P[2]-P[0], v·P[2]-P[1] in normalized
+    coordinates to its track's 4x4 Gram matrix; one batched eigh over the
+    T tracks.  The eigenvector's sign cancels in xh[:3] / xh[3].
+
+    obs (F, T, 2), obs_mask (F, T), rs (F, 3, 3), ts (F, 3), k (3, 3) →
+    (points (T, 3) world coords, depths (F, T) per-view depths).
+    """
+    xn = torch.stack([(obs[..., 0] - k[0, 2]) / k[0, 0],
+                      (obs[..., 1] - k[1, 2]) / k[1, 1]], dim=-1)
+    p = torch.cat([rs, ts[:, :, None]], dim=2)                      # (F,3,4)
+    a1 = xn[..., 0, None] * p[:, None, 2, :] - p[:, None, 0, :]     # (F,T,4)
+    a2 = xn[..., 1, None] * p[:, None, 2, :] - p[:, None, 1, :]
+    w = obs_mask.to(a1.dtype)[..., None]
+    a1 = a1 * w
+    a2 = a2 * w
+    gram = (torch.einsum("fti,ftj->tij", a1, a1)
+            + torch.einsum("fti,ftj->tij", a2, a2))
+    gram = gram + 1e-12 * torch.eye(4, dtype=gram.dtype, device=gram.device)
+    xh = smallest_eigvec(gram)                                       # (T, 4)
+    denom = xh[..., 3:]
+    denom = torch.where(denom.abs() < 1e-12, 1e-12, denom)
+    pts = xh[..., :3] / denom
+    depths = torch.einsum("fj,tj->ft", rs[:, 2, :], pts) + ts[:, None, 2]
+    return pts, depths
 
 
 def select_pose(xy1, xy2, rs, ts, k1, k2, mask, both_cameras: bool = True):

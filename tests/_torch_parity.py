@@ -25,6 +25,21 @@ def jax_two_view_samples(key, mask, num_samples, h_samples):
             jax_sample_idx(jax.random.fold_in(key, 1), mask, h_samples, 4))
 
 
+def jax_pnp_samples(key, mask, num_samples, sample_size=6):
+    """The (H, S) RANSAC-PnP sample indices the JAX package draws from
+    ``key`` (split -> per-hypothesis uniform keys, invalid rows keyed 2.0,
+    argsort, first S: sfm/pnp.py ransac_pnp), as numpy int64."""
+    mask = jnp.asarray(mask)
+    n = mask.shape[0]
+
+    def draw(kk):
+        u = jnp.where(mask, jax.random.uniform(kk, (n,)), 2.0)
+        return jnp.argsort(u)[:sample_size]
+
+    keys = jax.random.split(key, num_samples)
+    return np.asarray(jax.vmap(draw)(keys)).astype(np.int64)
+
+
 def assert_same_up_to_sign(a, b, atol):
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)

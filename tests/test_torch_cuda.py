@@ -5,13 +5,17 @@ fixture).  On a machine with one, and without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Every output is an integer: bit-exact.
+FAST, BRIEF and Hamming outputs are integers: bit-exact.  The Schur
+products are f32 sums of 3T terms taken in another order than the plain
+einsums: within the worst-case bound ``schur.error_bound``.
 """
 import numpy as np
 import pytest
 import torch
 
-from photogrammetry_tpu_torch.kernels import brief_pack, fast_stencil, hamming
+from photogrammetry_tpu_torch.kernels import (
+    brief_pack, fast_stencil, hamming, schur,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -57,3 +61,22 @@ def test_hamming_kernel_exact(dev):
     for args in ((b1, b2), (b1, b2, m1, m2)):
         got = hamming.hamming_distance_matrix(*args)
         assert torch.equal(got, hamming.hamming_distance_matrix_plain(*args))
+
+
+def test_schur_kernel_within_bound(dev):
+    rng = np.random.default_rng(3)
+    f, t = 5, 700   # ragged: 6F is not a multiple of 32, T not of 64
+    args = [torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                         device=dev)
+            for shape in ((f, t, 6, 3), (f, t, 6, 3), (t, 3))]
+    before = schur.schur_products.launches
+    s, c = schur.schur_products(*args)
+    torch.cuda.synchronize()
+    assert schur.schur_products.launches == before + 1
+    s_ref, c_ref = schur.schur_products_plain(*args)
+    s_bound, c_bound = schur.error_bound(*args)
+    assert ((s.double() - s_ref.double()).abs() <= s_bound).all()
+    assert ((c.double() - c_ref.double()).abs() <= c_bound).all()
+    # a fixed summation order: the same bits twice
+    s2, c2 = schur.schur_products(*args)
+    assert torch.equal(s, s2) and torch.equal(c, c2)

@@ -37,10 +37,14 @@ from photogrammetry_tpu.synth.star_scene import (
     render_frame,
 )
 from photogrammetry_tpu_torch import entry
+from photogrammetry_tpu_torch.cli import run_sfm
 from photogrammetry_tpu_torch.convert import from_jax
+from photogrammetry_tpu_torch.core.camera import intrinsic_matrix
 from photogrammetry_tpu_torch.sfm.frontend import (
     detect_and_describe, make_pairs, match_pair,
 )
+from photogrammetry_tpu_torch.sfm.incremental import run_incremental_sfm
+from photogrammetry_tpu_torch.sfm.tracks import make_track_table
 from photogrammetry_tpu_torch.sfm.two_view import two_view_from_samples
 from photogrammetry_tpu_torch.synth import star_scene as port_star_scene
 
@@ -176,7 +180,7 @@ def test_port_imports_without_jax():
                          env={**os.environ, "PYTHONPATH": str(REPO)})
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
-    assert len(modules) >= 15
+    assert len(modules) >= 27
 
 
 def test_port_sources_import_no_jax():
@@ -201,3 +205,11 @@ def test_entry_points_raise_without_a_card(scene, state):
         make_pairs(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         from_jax(np.asarray(pairs), np.eye(3), {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        intrinsic_matrix(520.0, 520.0, 320.0, 240.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_track_table(4, 16, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_incremental_sfm(scene["frames"], scene["k"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_sfm.main(["--synthetic-frames", "2"])
