@@ -19,6 +19,12 @@ Phases, each printing one JSON line with its seconds:
      SfM path's F=12/T=1024, bench_all.py's F=16/T=4096 and a ragged
      F=5/T=700: every element within 3T * 2^-23 * (|A| |B|^T), the
      worst-case f32 bound of a 3T-term sum, and the same bits twice;
+     remap_parity: the remap kernel against its plain version, bit-exact,
+     on a 1080x1920 float32 frame through the reference-coefficient
+     distortion map, on that frame as (1080, 1920, 3) uint8, on the 12
+     stacked frames, and on a ragged uint8 batch through a map that is
+     larger than the source, folds, and has entries far outside and
+     non-finite;
   6. slice: the two frames through ``entry.forward`` with the kernels,
      launch counts set to 0 just before and read just after; then the
      same with the plain versions on the card under the same generator
@@ -33,9 +39,28 @@ Phases, each printing one JSON line with its seconds:
      plain; ATE < 0.2 scene units and > 80 landmarks in both runs (the
      bounds of tests/test_incremental.py); the largest camera-center
      difference between the two runs is printed, not gated;
-  8. timing: each kernel, its plain version and, where one exists, one
+  8. dewarp_sfm: the lens-dewarp path at full width.  The 12 frames are
+     barrel-distorted once with the synthetic map at the reference
+     coefficients (what that camera would have captured), then go through
+     ``run_sfm``'s ``dewarp_frames`` (the map from ``DistortionMapCache``
+     in a temporary directory, one stacked launch of the remap kernel) and
+     ``run_incremental_sfm_robust(restarts=3)`` at DEWARP_SEED, launch
+     counts set to 0 just before and read just after (all five kernels
+     must have launched); then the same with ``plain=True``: the dewarped
+     frames bit-equal, the frontend's features identical, the dewarped
+     interior within DEWARP_MEAN_TOL / DEWARP_P99_TOL grey levels of the
+     clean frames, 12 camera centers, ATE < 0.2 and > 80 landmarks in both
+     runs;
+  9. pipeline_demo: ``cli.pipeline_demo.build_pipeline``'s dewarp ->
+     grayscale -> detect -> nms -> draw stages over the content store on a
+     uint8 RGB rendering of one frame (the read and write stages need an
+     image library and are left out), launches counted, kernel vs
+     ``plain=True`` keypoints identical;
+ 10. timing: each kernel, its plain version and, where one exists, one
      PyTorch call computing the same function (Hamming: ``cdist(p=0)``;
-     Schur: two matmuls on operands already flattened to (6F, 3T)), as
+     Schur: two matmuls on operands already flattened to (6F, 3T); remap:
+     ``grid_sample`` on a grid normalised beforehand and, for uint8, an
+     image converted to float beforehand), as
      device busy time per call (torch.profiler) and as CUDA-event time per
      call in a loop (host dispatch included), each beside its bound from
      the bytes moved and the operations done; the 1080p frontend's
@@ -43,7 +68,9 @@ Phases, each printing one JSON line with its seconds:
      T=4096, 10 iterations (bench_all.py's problem) in iterations/s with
      the kernel and plain; one 12-frame ``run_incremental_sfm`` after a
      warm-up: frames/s from its wall time, device busy time, idle share
-     and top device ops.
+     and top device ops; the remap kernel at its three 1080p shapes, map
+     generation, ``dewarp_frames`` on the 12 frames, and one dewarp + SfM
+     run's frames/s, busy time and idle share.
 Then the ``{"kernels": [...]}`` line and, last, the ok line.  Any failure
 raises and exits non-zero before the ok line.  Needs one CUDA card; exits
 2 without one.
@@ -74,6 +101,23 @@ SFM_FRAMES = 12     # the pan; the two-view slice takes its frames 0 and 2
 # bounds (cli/sweep_sfm_seeds.py), and seed 0 misses ATE 0.2 with the
 # kernels and plain alike (0.299 / 0.290; see PERF.md).
 SFM_SEED = 1
+# The lens of the dewarp phases: the reference's coefficients k1..k5
+DEWARP_COEFFS = [3e-4, 1e-7, 0.0, 0.0, 0.0]
+# The RANSAC seed of the dewarp_sfm phase, chosen as SFM_SEED was.  Seeds
+# 0-5 were tried (cli/sweep_sfm_seeds.py --frames 12 --size 1080 1920
+# --focal 1560 --restarts 3 --distortion-coeffs 3e-4 1e-7 0 0 0, with the
+# kernels and with --plain, NVIDIA H100 80GB HBM3 at 700 W): all six met
+# both bounds in both runs (ATE 0.007-0.017, 117-129 landmarks; seed 1:
+# 0.0071 both), so the phase keeps the SfM phase's seed.
+DEWARP_SEED = 1
+# Grey-level bounds on |dewarped - clean| over the interior (40 px in from
+# every border): the frame is resampled twice (the synthetic capture shrinks
+# it by up to 1.45x toward the corners, the dewarp expands it again), so the
+# star's edges blur (hundreds of pixels are off by up to half the grey
+# range) while the mean and the 99th percentile stay small: 0.36 and 0.79
+# on a frame of this pan, against 16.5 for the captured frame.
+DEWARP_MEAN_TOL = 1.0
+DEWARP_P99_TOL = 4.0
 # (F cameras, T landmarks): the SfM path's window and track capacity,
 # bench_all.py's BA problem, and a ragged shape
 SCHUR_SHAPES = ((12, 1024), (16, 4096), (5, 700))
@@ -130,8 +174,9 @@ def device_profile(fn, iters: int = 10, top: int = 0):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: a host-side trace of a whole SfM run fills the
+    # profiler's buffers, and the sessions after it then record nothing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -462,9 +507,12 @@ def check_schur(dev) -> float:
     return max(c["max_abs_err"] for c in cases)
 
 
-def drive_sfm(dev, frames, k, centers, counters):
-    """Phase 7: the robust incremental SfM through the kernels (launches
-    counted) and with the plain versions, under the same seed."""
+def drive_sfm(dev, frames, k, centers, counters, phase="sfm", seed=SFM_SEED,
+              stage=None):
+    """Phases 7 and 8: the robust incremental SfM through the kernels
+    (launches counted) and with the plain versions, under the same seed.
+    ``stage(plain)``, when given, makes the run's frames inside the counted
+    window (the dewarp stage) and must give the same bits both times."""
     import torch
 
     from photogrammetry_tpu_torch.sfm.frontend import (
@@ -481,7 +529,8 @@ def drive_sfm(dev, frames, k, centers, counters):
 
     def run(plain):
         t0 = time.perf_counter()
-        res = run_incremental_sfm_robust(frames, k, cfg, seed=SFM_SEED,
+        run_frames = frames if stage is None else stage(plain)
+        res = run_incremental_sfm_robust(run_frames, k, cfg, seed=seed,
                                          restarts=3, device=dev,
                                          plain=plain)
         if dev.type == "cuda":
@@ -489,43 +538,280 @@ def drive_sfm(dev, frames, k, centers, counters):
         ate = float(absolute_trajectory_error(
             torch.tensor(res.camera_centers, dtype=torch.float64),
             torch.tensor(centers, dtype=torch.float64)))
-        return res, dict(seconds=time.perf_counter() - t0, ate=ate,
-                         landmarks=len(res.points), quality=res.quality,
-                         final_cost=res.costs[-1])
+        return run_frames, res, dict(
+            seconds=time.perf_counter() - t0, ate=ate,
+            centers=len(res.camera_centers), landmarks=len(res.points),
+            quality=res.quality, final_cost=res.costs[-1])
 
     for c in counters.values():
         c.launches = 0
-    out, stats = run(plain=False)
+    out_frames, out, stats = run(plain=False)
     launches = {name: c.launches for name, c in counters.items()}
-    ref, ref_stats = run(plain=True)
+    ref_frames, ref, ref_stats = run(plain=True)
 
-    # the batched frontend of both runs, on the same frames and pairs
-    frames_t = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+    # the batched frontend of both runs, each on its own frames
     pairs = make_pairs(cfg.frontend, device=dev)
-    fa, fb = (precompute_frontend(frames_t, pairs, cfg.frontend,
-                                  chunk=cfg.frontend_chunk, plain=plain)
-              for plain in (False, True))
+    fa, fb = (precompute_frontend(
+        torch.as_tensor(fr, dtype=torch.float32, device=dev), pairs,
+        cfg.frontend, chunk=cfg.frontend_chunk, plain=plain)
+        for fr, plain in ((out_frames, False), (ref_frames, True)))
     same = all(torch.equal(a, b) for a, b in
                zip([*fa.points, fa.bits, fa.xy], [*fb.points, fb.bits,
                                                   fb.xy]))
-    result = {"phase": "sfm", "frames": list(frames.shape),
+    result = {"phase": phase, "frames": list(frames.shape), "seed": seed,
               "kernels": stats, "plain": ref_stats,
               "features_identical": same,
               "keypoints_per_frame": fa.points.count.tolist(),
               "max_center_diff_kernel_vs_plain": float(np.abs(
                   out.camera_centers - ref.camera_centers).max()),
               "launches": launches}
+    if stage is not None:
+        result["staged_frames_identical"] = bool(torch.equal(out_frames,
+                                                             ref_frames))
     emit(result)
     if not same:
         raise AssertionError("batched frontend differs kernel vs plain")
+    if not result.get("staged_frames_identical", True):
+        raise AssertionError("staged frames differ kernel vs plain")
     for st in (stats, ref_stats):
-        if not st["ate"] < 0.2 or st["landmarks"] <= 80:
+        if (st["centers"] != len(frames) or not st["ate"] < 0.2
+                or st["landmarks"] <= 80):
             raise AssertionError(f"SfM out of bounds: {st}")
     missing = [n for n, v in launches.items() if v < 1]
     if missing:
-        raise AssertionError(f"kernels not launched on the SfM path: "
+        raise AssertionError(f"kernels not launched on the {phase} path: "
+                             f"{missing}")
+    return launches, out_frames
+
+
+def tinted_rgb(frame):
+    """A uint8 RGB rendering (H, W, 3) of a grayscale frame: three
+    different channels, so a channel mix-up shows."""
+    return np.stack([frame, frame * 0.8, frame * 0.6], -1).astype(np.uint8)
+
+
+def check_remap(dev, seq) -> float:
+    """The remap kernel against its plain version on ``dev``, bit-exact, at
+    the dewarp paths' shapes and a ragged one; returns the worst
+    |kernel - plain| (0 when exact)."""
+    import torch
+
+    from photogrammetry_tpu_torch.kernels import remap
+    from photogrammetry_tpu_torch.ops.dewarp import generate_distortion_map
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h, w = seq.shape[1:]
+    dmap = generate_distortion_map(h, w, DEWARP_COEFFS, device=dev)
+    stack = torch.as_tensor(seq, device=dev).to(torch.float32)[..., None]
+    rgb = torch.as_tensor(tinted_rgb(seq[0]), device=dev)[None]
+    # ragged: a map larger than the source that folds in the columns, with
+    # entries far outside and non-finite ones
+    hs, ws, ho, wo = 333, 517, 350, 540
+    ragged = torch.randint(0, 256, (2, hs, ws, 2), generator=gen,
+                           device=dev).to(torch.uint8)
+    rows = torch.rand((ho, wo), generator=gen, device=dev) * (hs + 6) - 3
+    cols = (torch.arange(wo, device=dev) - wo / 2.0).abs() * 1.9 + 0.3
+    wild = torch.stack([rows, cols[None, :].expand(ho, wo)], -1).contiguous()
+    wild[::7, ::5] = 1e9
+    wild[1::7, ::5] = -1e9
+    wild[2::7, ::5, 0] = float("nan")
+    wild[3::7, ::5, 1] = float("inf")
+    cases = []
+    for label, imgs, m in (("frame_f32", stack[:1], dmap),
+                           ("frame_rgb_u8", rgb, dmap),
+                           ("stack_f32", stack, dmap),
+                           ("ragged_u8", ragged, wild)):
+        got = remap.remap_bilinear(imgs, m)
+        ref = remap.remap_bilinear_plain(imgs, m)
+        cases.append(dict(case=label, images=list(imgs.shape),
+                          map=list(m.shape), dtype=str(imgs.dtype),
+                          nonzero=int((ref != 0).sum()),
+                          max_abs_err=max_err(got, ref),
+                          exact=bool(torch.equal(got, ref))))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    emit({"phase": "remap_parity", "cases": cases})
+    bad = [c for c in cases if not c["exact"] or c["nonzero"] == 0]
+    if bad:
+        raise AssertionError(f"remap kernel disagrees with its plain "
+                             f"version: {bad}")
+    return max(c["max_abs_err"] for c in cases)
+
+
+def capture_frames(dev, seq):
+    """The frames as a camera with the DEWARP_COEFFS lens would have
+    captured them: uint8 (F, H, W) numpy, barrel-distorted with the
+    synthetic map (a fixture, made with the plain remap)."""
+    import torch
+
+    from photogrammetry_tpu_torch.ops.dewarp import (
+        generate_synthetic_distortion_map, remap_plain,
+    )
+
+    synth = generate_synthetic_distortion_map(*seq.shape[1:], DEWARP_COEFFS,
+                                              device=dev)
+    clean = torch.as_tensor(seq, device=dev)[..., None]
+    return remap_plain(clean, synth)[..., 0].cpu().numpy()
+
+
+def drive_dewarp_sfm(dev, seq, captured, k, centers, counters, cache_dir):
+    """Phase 8: dewarp_frames + the robust SfM on the captured frames."""
+    import torch
+
+    from photogrammetry_tpu_torch.cli.run_sfm import dewarp_frames
+
+    def stage(plain):
+        return dewarp_frames(captured, DEWARP_COEFFS, cache_dir, dev,
+                             plain=plain)
+
+    launches, dewarped = drive_sfm(dev, seq, k, centers, counters,
+                                   phase="dewarp_sfm", seed=DEWARP_SEED,
+                                   stage=stage)
+    clean = torch.as_tensor(seq, device=dev).to(torch.float32)
+    err = (dewarped - clean).abs()[:, 40:-40, 40:-40]
+    stats = dict(mean=float(err.mean()),
+                 p99=float(torch.quantile(err.flatten()[::7], 0.99)),
+                 max=float(err.max()),
+                 captured_mean=float((torch.as_tensor(captured, device=dev)
+                                      .to(torch.float32) - clean).abs()
+                                     [:, 40:-40, 40:-40].mean()))
+    emit({"phase": "dewarp_interior", "grey_levels": stats,
+          "finite": bool(torch.isfinite(dewarped).all()),
+          "shape": list(dewarped.shape)})
+    if (not stats["mean"] < DEWARP_MEAN_TOL
+            or not stats["p99"] < DEWARP_P99_TOL
+            or not stats["mean"] < 0.5 * stats["captured_mean"]):
+        raise AssertionError(f"dewarped frames far from the clean ones: "
+                             f"{stats}")
+    return launches
+
+
+def drive_pipeline(dev, frame, counters, cache_dir):
+    """Phase 9: build_pipeline's stages between read and write on one uint8
+    RGB frame, with the kernels (launches counted) and plain."""
+    import torch
+
+    from photogrammetry_tpu_torch.cli.pipeline_demo import build_pipeline
+    from photogrammetry_tpu_torch.store.content_store import Variant
+    from photogrammetry_tpu_torch.store.pipeline import Pipeline
+
+    rgb = tinted_rgb(frame)
+
+    def run(plain):
+        full = build_pipeline(DEWARP_COEFFS, 50.0, 50.0, 4096, cache_dir,
+                              cache_dir, device=dev, plain=plain)
+        pipe = Pipeline(full.stages[1:-1])
+        rid = pipe.run([rgb])[0]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return (pipe.store.fetch(rid, Variant.KEYPOINTS),
+                pipe.store.fetch(rid, Variant.DENOISED_KEYPOINTS),
+                pipe.store.fetch(rid, Variant.OVERLAY), pipe.timer.summary())
+
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    pts, kept, overlay, stages = run(plain=False)
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    ref_pts, ref_kept, ref_overlay, _ = run(plain=True)
+    same = all(torch.equal(a, b) for a, b in zip([*pts, *kept],
+                                                 [*ref_pts, *ref_kept]))
+    result = {"phase": "pipeline_demo", "image": list(rgb.shape),
+              "keypoints": int(pts.count), "after_nms": int(kept.count),
+              "keypoints_identical": same,
+              "overlay_identical": bool(np.array_equal(overlay,
+                                                       ref_overlay)),
+              "overlay": [list(overlay.shape), str(overlay.dtype)],
+              "seconds": seconds, "stages": stages, "launches": launches}
+    emit(result)
+    if not same or not result["overlay_identical"]:
+        raise AssertionError("pipeline differs kernel vs plain")
+    if (int(kept.count) <= 10 or int(kept.count) >= int(pts.count)
+            or overlay.shape != rgb.shape or overlay.dtype != np.uint8):
+        raise AssertionError(f"pipeline out of bounds: {result}")
+    missing = [n for n, v in launches.items() if v < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched by the pipeline: "
                              f"{missing}")
     return launches
+
+
+def time_remap(dev, seq, captured, cache_dir):
+    """Phase 10, dewarp part: the remap kernel, its plain version and
+    grid_sample at the three 1080p shapes; map generation; dewarp_frames."""
+    import torch
+    import torch.nn.functional as F
+
+    from photogrammetry_tpu_torch.cli.run_sfm import dewarp_frames
+    from photogrammetry_tpu_torch.kernels import remap
+    from photogrammetry_tpu_torch.ops.dewarp import generate_distortion_map
+
+    h, w = seq.shape[1:]
+    dmap = generate_distortion_map(h, w, DEWARP_COEFFS, device=dev)
+    # the library call's grid: (x, y) in [-1, 1] with align_corners=True,
+    # made beforehand (not in its time), one copy per frame as it demands
+    grid = torch.stack([dmap[..., 1] * (2.0 / (w - 1)) - 1.0,
+                        dmap[..., 0] * (2.0 / (h - 1)) - 1.0], -1)
+    stack = torch.as_tensor(captured, device=dev).to(torch.float32)[..., None]
+    rgb = torch.as_tensor(tinted_rgb(captured[0]), device=dev)[None]
+    rows = {}
+    for label, imgs in (("frame_f32", stack[:1].contiguous()),
+                        ("frame_rgb_u8", rgb), ("stack_f32", stack)):
+        b, _, _, c = imgs.shape
+        nchw = imgs.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+        grids = grid[None].expand(b, h, w, 2).contiguous()
+        rows[label] = time_row(dict(
+            run=lambda imgs=imgs: remap.remap_bilinear(imgs, dmap),
+            plain=lambda imgs=imgs: remap.remap_bilinear_plain(imgs, dmap),
+            library=lambda nchw=nchw, grids=grids: F.grid_sample(
+                nchw, grids, mode="bilinear", padding_mode="zeros",
+                align_corners=True),
+            # the map once, the images once, the output once; per pixel 8
+            # operations for the weights and 11 per frame and channel
+            bytes=dmap.numel() * 4 + 2 * imgs.numel() * imgs.element_size(),
+            ops=h * w * (8 + 11 * b * c)))
+        rows[label]["images"] = list(imgs.shape)
+        del nchw, grids
+    result = {"phase": "timing_remap", "rows": rows}
+    result["generate_map_ms"] = host_ms(
+        lambda: generate_distortion_map(h, w, DEWARP_COEFFS, device=dev))
+
+    def dewarp():
+        return dewarp_frames(captured, DEWARP_COEFFS, cache_dir, dev)
+
+    ms = host_ms(dewarp)
+    busy, top = device_profile(dewarp, iters=3, top=4)
+    result["dewarp_frames"] = dict(
+        frames=len(captured), wall_ms=ms,
+        frames_per_s=len(captured) * 1e3 / ms, device_busy_ms=busy,
+        top_device_ops=top)
+    emit(result)
+    return rows
+
+
+def time_dewarp_sfm(dev, captured, k, cache_dir):
+    """Phase 10, last part: one dewarp + SfM run's frames/s, device busy
+    time, idle share and top device ops."""
+    from photogrammetry_tpu_torch.cli.run_sfm import dewarp_frames
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm,
+    )
+
+    cfg = SfmConfig(collect_diagnostics=False)
+
+    def run():
+        frames = dewarp_frames(captured, DEWARP_COEFFS, cache_dir, dev)
+        return run_incremental_sfm(frames, k, cfg, seed=DEWARP_SEED,
+                                   device=dev)
+
+    wall = host_ms(run, reps=1)
+    busy, top = device_profile(run, iters=1, top=10)
+    emit({"phase": "timing_dewarp_sfm", "frames": list(captured.shape),
+          "wall_ms": wall, "frames_per_s": len(captured) * 1e3 / wall,
+          "device_busy_ms": busy,
+          "device_idle_share": max(0.0, 1 - busy / wall),
+          "top_device_ops": top})
 
 
 def time_sfm(dev, frames, k):
@@ -623,8 +909,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    import tempfile
+
     from photogrammetry_tpu_torch.kernels import (
-        _build, brief_pack, fast_stencil, hamming, schur,
+        _build, brief_pack, fast_stencil, hamming, remap, schur,
     )
     from photogrammetry_tpu_torch.sfm.frontend import (
         FrontendConfig, make_pairs,
@@ -667,22 +955,39 @@ def main() -> int:
     pairs = make_pairs(cfg, device=dev)
     errs = timed("parity", check_kernels, dev, frames, pairs, cfg)
     errs["schur"] = timed("schur_parity", check_schur, dev)
+    errs["remap"] = timed("remap_parity", check_remap, dev, seq)
 
     modules = {"fast_score": fast_stencil, "brief_bits": brief_pack,
-               "hamming": hamming, "schur": schur}
+               "hamming": hamming, "schur": schur, "remap": remap}
     counters = {"fast_score": fast_stencil.fast_score_map_batch,
                 "brief_bits": brief_pack.brief_bits,
                 "hamming": hamming.hamming_distance_matrix,
-                "schur": schur.schur_products}
+                "schur": schur.schur_products,
+                "remap": remap.remap_bilinear}
+    earlier = {n: c for n, c in counters.items() if n != "remap"}
     out, launches_forward = timed(
         "slice", drive_main_path, dev, frames, k, r_gt, pairs, cfg,
         {n: counters[n] for n in ("fast_score", "brief_bits", "hamming")})
-    launches = timed("sfm", drive_sfm, dev, seq, k, centers, counters)
-    timings = timed("timing", time_all, dev, frames, k, pairs, cfg, out)
-    schur_rows = timed("timing_sfm", time_sfm, dev, seq, k)
-    # the Schur kernel's row is taken at the SfM path's shape
+    launches_sfm, _ = timed("sfm", drive_sfm, dev, seq, k, centers, earlier)
+    with tempfile.TemporaryDirectory() as cache_dir:
+        captured = capture_frames(dev, seq)
+        launches = timed("dewarp_sfm", drive_dewarp_sfm, dev, seq, captured,
+                         k, centers, counters, cache_dir)
+        launches_pipeline = timed(
+            "pipeline_demo", drive_pipeline, dev, seq[0],
+            {n: counters[n] for n in ("remap", "fast_score")}, cache_dir)
+        timings = timed("timing", time_all, dev, frames, k, pairs, cfg, out)
+        remap_rows = timed("timing_remap", time_remap, dev, seq, captured,
+                           cache_dir)
+        schur_rows = timed("timing_sfm", time_sfm, dev, seq, k)
+        timed("timing_dewarp_sfm", time_dewarp_sfm, dev, captured, k,
+              cache_dir)
+    # each kernel's row is taken at the shape the dewarp + SfM path gives it
     timings["schur"] = schur_rows["F%d_T%d" % SCHUR_SHAPES[0]]
+    timings["remap"] = remap_rows["stack_f32"]
 
+    # launches: of the dewarp_sfm run, which goes through all five kernels;
+    # the earlier paths' counts and the pipeline's beside it
     emit({"kernels": [
         dict(name=n, route="cuda", source=modules[n].SOURCE,
              replaces=modules[n].REPLACES, launches=launches[n],
@@ -694,7 +999,9 @@ def main() -> int:
              call_ms=timings[n]["call_ms"],
              plain_call_ms=timings[n]["plain_call_ms"],
              library_call_ms=timings[n]["library_call_ms"],
-             launches_forward=launches_forward.get(n, 0))
+             launches_forward=launches_forward.get(n, 0),
+             launches_sfm=launches_sfm.get(n, 0),
+             launches_pipeline=launches_pipeline.get(n, 0))
         for n in counters]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -6,15 +6,29 @@ file of the same path there and is held against it by the
 never JAX and never the JAX package.
 
 Layer map (bottom-up), as far as the port reaches:
-  core/     — pinhole camera helpers
-  ops/      — dense static-shape image ops (FAST, NMS, BRIEF, refine,
-              Hamming matching), plain PyTorch
-  kernels/  — hand-written CUDA kernels for Hopper (csrc/*.cu), each beside
-              the plain PyTorch version it is held against
-  sfm/      — frontend, epipolar geometry, homography, triangulation,
-              two-view pipeline
+  core/     — pinhole camera helpers, SO(3)/SE(3) exp and log (lie), the
+              closed-form cubic solver of the dewarp (cubic)
+  ops/      — dense static-shape image ops, plain PyTorch: FAST, NMS,
+              BRIEF, refine, Hamming matching, grayscale, the distortion
+              maps and the plain remap (dewarp), plumb-line lens
+              calibration (calibrate)
+  kernels/  — hand-written CUDA kernels for Hopper (csrc/*.cu: FAST, BRIEF,
+              Hamming, Schur, remap), each beside the plain PyTorch version
+              it is held against; _build compiles and loads them
+  sfm/      — frontend (single and batched), epipolar geometry, homography,
+              triangulation, the two-view pipeline, tracks, PnP, Schur
+              bundle adjustment (ba), incremental SfM and its
+              best-of-restarts form, trajectory metrics
+  store/    — content store with typed variants, the staged pipeline
+              runner over it, distortion-map and keypoint caches
+  io/       — image files (Pillow, imported on use), overlay drawing, PLY
   synth/    — synthetic ground-truth star camera-pan scenes (numpy)
-  utils/    — padding container
+  utils/    — padding container, stage timer and stats log, JAX-semantics
+              reductions
+  cli/      — run_sfm (with the dewarp stage), de_warp, pipeline_demo,
+              calibrate_dewarp, sweep_sfm_seeds
+  entry / convert — the two-view forward step; carrying the JAX package's
+              pairs, configuration, state and distortion maps across
 
 Entry points that create tensors take ``device`` (default ``"cuda"``); with
 no card they raise rather than run on the CPU.  Functions that take tensors

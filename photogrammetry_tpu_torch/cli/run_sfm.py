@@ -2,14 +2,16 @@
 (port of photogrammetry_tpu/cli/run_sfm.py, default path).
 
     python -m photogrammetry_tpu_torch.cli.run_sfm [FRAMES_DIR] \\
-        [--synthetic-frames 8] [--restarts 3] [--device cuda]
+        [--synthetic-frames 8] [--restarts 3] [--device cuda] \\
+        [--distortion-coeffs K1 K2 K3 K4 K5] [--dewarp-cache DIR]
 
 A directory of frames (sorted), or the built-in synthetic star pan with
-exact ground truth for an ATE report → ``run_incremental_sfm`` (or its
-best-of-``--restarts`` form) → ``cloud.ply`` + ``trajectory.json`` and
-one JSON report line.  The JAX CLI's other modes (dewarp, loop closure,
-submaps, keyframes, mesh, checkpoint, pyramid, oriented BRIEF,
-precompute-matching) are not ported: their flags raise
+exact ground truth for an ATE report → (with ``--distortion-coeffs``) the
+lens dewarp of every frame, ``dewarp_frames`` → ``run_incremental_sfm``
+(or its best-of-``--restarts`` form) → ``cloud.ply`` +
+``trajectory.json`` and one JSON report line.  The JAX CLI's other modes
+(loop closure, submaps, keyframes, mesh, checkpoint, pyramid, oriented
+BRIEF, precompute-matching) are not ported: their flags raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -17,7 +19,9 @@ from __future__ import annotations
 import argparse
 import json
 
-NOT_PORTED = ("--distortion-coeffs", "--dewarp-cache", "--loop-closure",
+from photogrammetry_tpu_torch.cli.common import load_gray
+
+NOT_PORTED = ("--loop-closure",
               "--loop-min-gap", "--loop-min-matches", "--loop-max-edges",
               "--loop-mode", "--submap-frames", "--submap-overlap",
               "--submap-prior-weight", "--submap-refine", "--keyframe-disp",
@@ -25,17 +29,30 @@ NOT_PORTED = ("--distortion-coeffs", "--dewarp-cache", "--loop-closure",
               "--oriented-brief", "--precompute-matching")
 
 
-def load_gray(path: str):
-    """An image file as float32 grayscale with OpenCV's fixed-point
-    BGR2GRAY weights (the JAX package's cli/common.py), read with Pillow
-    (imported here: only this branch needs it)."""
-    import numpy as np
-    from PIL import Image
+def dewarp_frames(frames, coeffs, cache_dir: str, device="cuda",
+                  plain: bool = False):
+    """The dewarp stage in front of incremental SfM: (F, H, W) frames (numpy
+    or tensor) → the float32 tensor of dewarped frames on ``device``.
 
-    rgb = np.asarray(Image.open(path).convert("RGB"), np.int32)
-    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-    return ((r * 4899 + g * 9617 + b * 1868 + (1 << 13)) >> 14) \
-        .astype(np.float32)
+    The distortion map comes from ``DistortionMapCache(cache_dir)``
+    (generated on ``device`` when absent), the stacked frames are uploaded
+    once and remapped in one launch of the remap kernel (``plain=True``: the
+    plain PyTorch remap), and the result stays on the device for
+    ``run_incremental_sfm``.
+    """
+    import torch
+
+    from photogrammetry_tpu_torch import resolve_device
+    from photogrammetry_tpu_torch.ops.dewarp import make_distortion_applier
+    from photogrammetry_tpu_torch.store.cache import DistortionMapCache
+
+    dev = resolve_device(device)
+    h, w = frames.shape[1:3]
+    dmap = DistortionMapCache(cache_dir).get_or_generate(h, w, coeffs,
+                                                         device=dev)
+    apply = make_distortion_applier(dmap, (h, w), device=dev, plain=plain)
+    return apply(torch.as_tensor(frames).to(device=dev,
+                                            dtype=torch.float32))
 
 
 def main(argv=None) -> int:
@@ -50,6 +67,15 @@ def main(argv=None) -> int:
     ap.add_argument("--detection-threshold", type=float, default=20.0)
     ap.add_argument("--frame-stride", type=int, default=1,
                     help="temporal subsampling: keep every Nth frame")
+    ap.add_argument("--distortion-coeffs", type=float, nargs=5, default=None,
+                    metavar=("K1", "K2", "K3", "K4", "K5"),
+                    help="dewarp every frame of FRAMES_DIR with this "
+                         "rational radial model before detection (the "
+                         "reference's live pipeline order: read -> dewarp "
+                         "-> gray -> detect); all zero = no dewarp")
+    ap.add_argument("--dewarp-cache", default="data/distortion_maps",
+                    help="distortion-map cache dir (with "
+                         "--distortion-coeffs)")
     ap.add_argument("--cloud", default="cloud.ply")
     ap.add_argument("--trajectory", default="trajectory.json")
     ap.add_argument("--stats", default=None)
@@ -110,6 +136,11 @@ def main(argv=None) -> int:
                      f"(after stride {args.frame_stride})")
         frames = np.stack([load_gray(p) for p in paths])
         h, w = frames.shape[1:3]
+        if args.distortion_coeffs is not None and any(args.distortion_coeffs):
+            with timer.stage("dewarp"):
+                frames = timer.block(dewarp_frames(
+                    frames, args.distortion_coeffs, args.dewarp_cache,
+                    device))
         fx = args.fx if args.fx is not None else 1.2 * w
         if fx <= 0:
             ap.error(f"--fx must be positive, got {fx}")

@@ -6,7 +6,13 @@ are noisy; accuracy is judged on the across-seed distribution.  Usage:
 
     python -m photogrammetry_tpu_torch.cli.sweep_sfm_seeds \\
         [--frames 8] [--seeds 20] [--size 480 640] [--focal 520] \\
-        [--restarts 1] [--device cuda]
+        [--restarts 1] [--device cuda] [--plain] \\
+        [--distortion-coeffs K1 K2 K3 K4 K5]
+
+With ``--distortion-coeffs`` the rendered frames are first barrel-distorted
+with the synthetic map (what a camera with that lens would capture) and
+then go through ``run_sfm``'s dewarp stage, so the sweep is over the
+dewarp + SfM path.  ``--plain`` runs the kernels' plain versions.
 
 Prints one JSON line per seed (ATE, landmarks, support, median
 reprojection error) and a summary line: mean / p90 / max ATE and the share
@@ -31,6 +37,12 @@ def main(argv=None) -> int:
                     help=">1 uses run_incremental_sfm_robust best-of-K "
                          "selection per seed")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--plain", action="store_true",
+                    help="run the kernels' plain PyTorch versions")
+    ap.add_argument("--distortion-coeffs", type=float, nargs=5, default=None,
+                    metavar=("K1", "K2", "K3", "K4", "K5"),
+                    help="distort the frames with this lens model, then "
+                         "dewarp them in front of the SfM run")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -49,12 +61,30 @@ def main(argv=None) -> int:
     scene = generate_sequence(StarSceneConfig(
         num_frames=args.frames, image_size=tuple(args.size),
         focal=args.focal, supersample=args.supersample))
+    frames = scene["frames"]
+    if args.distortion_coeffs is not None:
+        import tempfile
+
+        from photogrammetry_tpu_torch.cli.run_sfm import dewarp_frames
+        from photogrammetry_tpu_torch.ops.dewarp import (
+            generate_synthetic_distortion_map, remap_plain,
+        )
+
+        synth = generate_synthetic_distortion_map(
+            *args.size, args.distortion_coeffs, device=args.device)
+        captured = remap_plain(
+            torch.as_tensor(frames).to(synth.device)[..., None], synth)
+        with tempfile.TemporaryDirectory() as cache_dir:
+            frames = dewarp_frames(captured[..., 0].cpu().numpy(),
+                                   args.distortion_coeffs, cache_dir,
+                                   args.device, plain=args.plain)
     cfg = SfmConfig(collect_diagnostics=False)
     rows = []
     for seed in range(args.seeds):
-        res = run_incremental_sfm_robust(scene["frames"], scene["k"], cfg,
+        res = run_incremental_sfm_robust(frames, scene["k"], cfg,
                                          seed=seed, restarts=args.restarts,
-                                         device=args.device)
+                                         device=args.device,
+                                         plain=args.plain)
         support, med = reconstruction_quality(res, scene["k"])
         rows.append(dict(seed=seed, ate=float(absolute_trajectory_error(
             torch.tensor(res.camera_centers, dtype=torch.float64),
@@ -65,7 +95,9 @@ def main(argv=None) -> int:
     print(json.dumps({
         "frames": args.frames, "size": list(args.size), "focal": args.focal,
         "seeds": args.seeds, "restarts": args.restarts,
-        "device": args.device, "mean": float(ates.mean()),
+        "device": args.device, "plain": args.plain,
+        "distortion_coeffs": args.distortion_coeffs,
+        "mean": float(ates.mean()),
         "p90": float(np.percentile(ates, 90)), "max": float(ates.max()),
         "within_bounds": float(np.mean([r["ate"] < 0.2
                                         and r["landmarks"] > 80

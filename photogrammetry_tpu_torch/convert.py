@@ -6,8 +6,10 @@ state is the track table and the BA state of a reconstruction.
 ``from_jax`` takes the first as plain numpy arrays and a dict
 (``np.asarray(make_pairs(cfg))``, ``dataclasses.asdict(cfg)``);
 ``state_from_jax`` takes a JAX ``TrackTable`` / ``BAState`` /
-``BAProblem`` and reads its leaves with ``np.asarray``.  So this module
-needs no JAX.
+``BAProblem`` and reads its leaves with ``np.asarray``.  The dewarp slice
+has no trained state either: what it carries across is the distortion map
+(``distortion_map_from_jax``) and the (5,) coefficient vector, a plain list
+of floats.  So this module needs no JAX.
 """
 from __future__ import annotations
 
@@ -81,3 +83,20 @@ def state_from_jax(state, device="cuda"):
                         f"BAProblem: {type(state).__name__}")
     dev = resolve_device(device)
     return cls(*(torch.from_numpy(np.array(x)).to(dev) for x in state))
+
+
+def distortion_map_from_jax(dist_map, device="cuda") -> torch.Tensor:
+    """A distortion map of the JAX package (``np.asarray`` of what
+    ``generate_distortion_map`` returned, or what ``DistortionMapCache``
+    loaded) → the contiguous float32 (H, W, 2) tensor on ``device`` that
+    ``apply_distortion_map`` and the remap kernel take.  The layout is the
+    same in both packages: [..., 0] source row, [..., 1] source column."""
+    arr = np.asarray(dist_map)
+    if arr.ndim != 3 or arr.shape[-1] != 2:
+        raise ValueError(f"distortion_map_from_jax: shape {arr.shape}, "
+                         f"expected (H, W, 2)")
+    if arr.dtype != np.float32:
+        raise TypeError(f"distortion_map_from_jax: dtype {arr.dtype}, "
+                        f"expected float32")
+    dev = resolve_device(device)
+    return torch.from_numpy(np.array(arr, order="C")).to(dev)

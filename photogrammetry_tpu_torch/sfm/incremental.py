@@ -342,7 +342,8 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
                         seed: int = 0, checkpoint_path: str | None = None,
                         export: bool = True, *, device="cuda",
                         plain: bool = False) -> SfmResult:
-    """frames: (F, H, W) grayscale (numpy or tensor); k: (3, 3) intrinsics.
+    """frames: (F, H, W) grayscale, a numpy array or a tensor on any device
+    (one on ``device`` is not copied); k: (3, 3) intrinsics.
 
     Runs on ``device`` (default CUDA; raises without a card unless
     ``device='cpu'``).  ``plain=True`` runs the kernels' plain versions
@@ -362,8 +363,12 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
     gen.manual_seed(seed)
     pairs = make_pairs(fc, device=dev)
     kmat = torch.as_tensor(np.asarray(k), dtype=torch.float32).to(dev)
-    frames_t = torch.as_tensor(np.asarray(frames),
-                               dtype=torch.float32).to(dev).contiguous()
+    # a float32 tensor already on ``dev`` (the dewarp stage's output) is
+    # used as it is: no host round trip, no second copy
+    if not isinstance(frames, torch.Tensor):
+        frames = np.asarray(frames)
+    frames_t = torch.as_tensor(frames, dtype=torch.float32,
+                               device=dev).contiguous()
 
     table = make_track_table(num_frames, config.track_capacity,
                              fc.max_keypoints, device=dev)

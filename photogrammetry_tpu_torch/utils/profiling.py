@@ -6,6 +6,7 @@ import contextlib
 import json
 import os
 import socket
+import threading
 import time
 
 import torch
@@ -18,6 +19,7 @@ class StageTimer:
     def __init__(self):
         self.totals: dict[str, float] = {}
         self.counts: dict[str, int] = {}
+        self._lock = threading.Lock()   # a Pipeline's workers share a timer
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -26,8 +28,9 @@ class StageTimer:
             yield
         finally:
             dt = time.perf_counter() - start
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+            with self._lock:
+                self.totals[name] = self.totals.get(name, 0.0) + dt
+                self.counts[name] = self.counts.get(name, 0) + 1
 
     @staticmethod
     def block(x):

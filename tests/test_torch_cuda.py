@@ -7,14 +7,19 @@ fixture).  On a machine with one, and without JAX:
 
 FAST, BRIEF and Hamming outputs are integers: bit-exact.  The Schur
 products are f32 sums of 3T terms taken in another order than the plain
-einsums: within the worst-case bound ``schur.error_bound``.
+einsums: within the worst-case bound ``schur.error_bound``.  The remap
+kernel repeats its plain version's f32 arithmetic operation for operation
+(no FMA): bit-exact for float32 and uint8.
 """
 import numpy as np
 import pytest
 import torch
 
 from photogrammetry_tpu_torch.kernels import (
-    brief_pack, fast_stencil, hamming, schur,
+    brief_pack, fast_stencil, hamming, remap, schur,
+)
+from photogrammetry_tpu_torch.ops.dewarp import (
+    generate_distortion_map, make_distortion_applier,
 )
 
 pytestmark = pytest.mark.cuda
@@ -80,3 +85,44 @@ def test_schur_kernel_within_bound(dev):
     # a fixed summation order: the same bits twice
     s2, c2 = schur.schur_products(*args)
     assert torch.equal(s, s2) and torch.equal(c, c2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("b,c", [(1, 1), (3, 1), (1, 3), (2, 4)])
+def test_remap_kernel_exact(dev, dtype, b, c):
+    rng = np.random.default_rng(4)
+    hs, ws = 97, 131                       # ragged against the 32x8 block
+    imgs = torch.tensor(rng.uniform(0, 255, (b, hs, ws, c)),
+                        device=dev).to(dtype)
+    radial = generate_distortion_map(hs, ws, [1.2e-3, 1.6e-6, 0, 0, 0],
+                                     device=dev)
+    wild = torch.tensor(np.stack([rng.uniform(-4, hs + 4, (hs + 9, ws + 14)),
+                                  rng.uniform(-4, ws + 4, (hs + 9, ws + 14))],
+                                 -1), dtype=torch.float32, device=dev)
+    wild[::7, ::5] = 1e9                    # far outside, and non-finite
+    wild[1::7, ::5] = -1e9
+    wild[2::7, ::5, 0] = float("nan")
+    wild[3::7, ::5, 1] = float("inf")
+    wild[5, :, 1] = ws - 0.5                # half of the last column
+    for dmap in (radial, wild):
+        before = remap.remap_bilinear.launches
+        got = remap.remap_bilinear(imgs, dmap)
+        torch.cuda.synchronize()
+        assert remap.remap_bilinear.launches == before + 1
+        ref = remap.remap_bilinear_plain(imgs, dmap)
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.equal(got, ref)
+        assert torch.isfinite(got.float()).all()
+
+
+def test_remap_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    imgs = torch.zeros((1, 8, 8, 1), device=dev)
+    dmap = torch.zeros((8, 8, 2), device=dev)
+    with pytest.raises(ValueError, match="float32 and uint8"):
+        remap.remap_bilinear(imgs.to(torch.float16), dmap)
+    with pytest.raises(ValueError, match="contiguous"):
+        remap.remap_bilinear(imgs.expand(2, 8, 8, 1), dmap)
+    with pytest.raises(ValueError, match="two devices"):
+        remap.remap_bilinear(imgs, dmap.cpu())
+    apply = make_distortion_applier(dmap, (8, 8), device=dev)
+    assert apply(np.zeros((8, 8), np.uint8)).device.type == "cuda"

@@ -321,9 +321,71 @@ def test_run_sfm_cli_frames_dir_and_unported_flags(tmp_path, pan):
     gray = run_sfm.load_gray(str(tmp_path / "f00.png"))
     np.testing.assert_array_equal(gray, pan["frames"][0].astype(np.float32))
     for flag in (["--loop-closure"], ["--mesh", "2"],
-                 ["--distortion-coeffs=1"]):
+                 ["--checkpoint=run.npz"]):
         with pytest.raises(NotImplementedError, match=flag[0].split("=")[0]):
             run_sfm.main(["--device", "cpu", *flag])
+
+
+def test_run_sfm_cli_with_dewarp(tmp_path, capsys):
+    """--distortion-coeffs puts the dewarp stage in front of the SfM run, as
+    tests/test_run_sfm_cli.py::test_run_sfm_with_dewarp runs it for the JAX
+    CLI: small but nonzero coefficients, so the stage really resamples and
+    the map lands in the cache while the geometry stays close to pinhole."""
+    from PIL import Image
+
+    scene = generate_sequence(StarSceneConfig(
+        num_frames=5, image_size=(240, 320), focal=260.0, supersample=2))
+    frames_dir = tmp_path / "frames"
+    frames_dir.mkdir()
+    for i, frame in enumerate(scene["frames"]):
+        Image.fromarray(frame).save(frames_dir / f"{i:03d}.png")
+    traj, cloud = tmp_path / "traj.json", tmp_path / "cloud.ply"
+    argv = [str(frames_dir), "--device", "cpu", "--fx", "260", "--cx", "160",
+            "--cy", "120", "--detection-threshold", "20", "--trajectory",
+            str(traj), "--cloud", str(cloud)]
+    assert run_sfm.main(argv + ["--distortion-coeffs", "1e-5", "0", "0", "0",
+                                "0", "--dewarp-cache",
+                                str(tmp_path / "maps")]) == 0
+    report = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert report["frames"] == 5 and "dewarp" in report["timings"]
+    assert cloud.is_file()
+    centers = np.asarray(json.loads(traj.read_text())["centers"])
+    assert centers.shape == (5, 3) and np.isfinite(centers).all()
+    assert [p.name for p in (tmp_path / "maps").iterdir()] == [
+        "dim_320x240_coeff_1e-05_0.0_0.0_0.0_0.0.npz"]
+    # trajectory moved: the pan spans ~2.4 units of camera travel
+    assert np.linalg.norm(centers[-1] - centers[0]) > 0.1
+
+    # the stage itself: one stacked remap, the result on the device
+    out = run_sfm.dewarp_frames(scene["frames"], [1e-5, 0, 0, 0, 0],
+                                str(tmp_path / "maps"), "cpu")
+    assert out.dtype == torch.float32 and out.shape == (5, 240, 320)
+    assert float((out - torch.tensor(scene["frames"])).abs().max()) > 1
+    # all-zero coefficients skip the stage
+    assert run_sfm.main(argv + ["--distortion-coeffs", "0", "0", "0", "0",
+                                "0", "--dewarp-cache",
+                                str(tmp_path / "none")]) == 0
+    report = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert "dewarp" not in report["timings"]
+    assert not (tmp_path / "none").exists()
+
+
+def test_run_incremental_sfm_takes_frames_on_the_device(pan):
+    """Frames that are already a tensor on the device (the dewarp stage's
+    output) go in as they are and give the numpy run's result."""
+    frames, k = pan["frames"][:5], pan["k"]
+    cfg = inc.SfmConfig(collect_diagnostics=False, ba_iterations=10,
+                        final_ba_iterations=10, final_refine_rounds=0)
+    ref = inc.run_incremental_sfm(frames, k, cfg, seed=2, device="cpu")
+    as_float = torch.tensor(frames, dtype=torch.float32)
+    for given in (as_float, torch.tensor(frames)):      # float32, uint8
+        res = inc.run_incremental_sfm(given, k, cfg, seed=2, device="cpu")
+        np.testing.assert_array_equal(res.rs, ref.rs)
+        np.testing.assert_array_equal(res.ts, ref.ts)
+        np.testing.assert_array_equal(res.points, ref.points)
+    best = inc.run_incremental_sfm_robust(as_float, k, cfg, seed=2,
+                                          restarts=1, device="cpu")
+    np.testing.assert_array_equal(best.rs, ref.rs)
 
 
 def test_convert_carries_config_and_state(table_state):
