@@ -16,15 +16,19 @@ Phases, each printing one JSON line with its seconds:
      2048 keypoints and 256 BRIEF pairs, the 2048x2048 Hamming matrix)
      and at ragged ones; all outputs are integers and must be bit-exact;
   5. schur_parity: the Schur kernel against its plain einsums at the
-     SfM path's F=12/T=1024, bench_all.py's F=16/T=4096 and a ragged
-     F=5/T=700: every element within 3T * 2^-23 * (|A| |B|^T), the
-     worst-case f32 bound of a 3T-term sum, and the same bits twice;
+     SfM path's F=12/T=1024, bench_all.py's F=16/T=4096, a ragged
+     F=5/T=700 and one shape for each branch of the kernel (one camera, a
+     ragged camera tile, one landmark, none, odd T, a ragged last tile;
+     operands at an odd offset into a larger allocation; a side stream):
+     every element within 3T * 2^-23 * (|A| |B|^T), the worst-case f32
+     bound of a 3T-term sum, and the same bits twice;
      remap_parity: the remap kernel against its plain version, bit-exact,
      on a 1080x1920 float32 frame through the reference-coefficient
      distortion map, on that frame as (1080, 1920, 3) uint8, on the 12
-     stacked frames, and on a ragged uint8 batch through a map that is
-     larger than the source, folds, and has entries far outside and
-     non-finite;
+     stacked frames, and on ragged batches of 1 to 5 channels in both
+     types through maps larger and smaller than the source that fold and
+     have entries far outside and non-finite, whole and in frame chunks
+     that do not divide the batch;
   6. slice: the two frames through ``entry.forward`` with the kernels,
      launch counts set to 0 just before and read just after; then the
      same with the plain versions on the card under the same generator
@@ -63,7 +67,11 @@ Phases, each printing one JSON line with its seconds:
      image converted to float beforehand), as
      device busy time per call (torch.profiler) and as CUDA-event time per
      call in a loop (host dispatch included), each beside its bound from
-     the bytes moved and the operations done; the 1080p frontend's
+     the bytes moved and the operations done (inputs hot in the L2 where
+     they fit; the remap rows also single calls after the L2 was
+     overwritten; the Schur rows also device time per call by CUDA-graph
+     replay at several numbers of landmark slabs, beside a launch of an
+     empty kernel; FAST also batched at B=12); the 1080p frontend's
      frames/s and the two-view pair latency; ``bundle_adjust`` at F=16,
      T=4096, 10 iterations (bench_all.py's problem) in iterations/s with
      the kernel and plain; one 12-frame ``run_incremental_sfm`` after a
@@ -121,6 +129,15 @@ DEWARP_P99_TOL = 4.0
 # (F cameras, T landmarks): the SfM path's window and track capacity,
 # bench_all.py's BA problem, and a ragged shape
 SCHUR_SHAPES = ((12, 1024), (16, 4096), (5, 700))
+# parity shapes beyond those, one for each branch of the kernel: one
+# camera, a ragged camera tile, one landmark (fewer than any split), no
+# landmark, an odd T (camera rows that start 8-byte aligned only) and a
+# slab with a ragged last tile
+SCHUR_PARITY_SHAPES = SCHUR_SHAPES + ((1, 1024), (17, 701), (12, 1), (3, 0),
+                                      (16, 701), (6, 2000))
+# where the operands are also taken at an odd offset into a larger
+# allocation (4-byte aligned rows) and on a side stream
+SCHUR_OFFSET_SHAPES = ((12, 1024), (17, 701))
 
 
 def emit(obj) -> None:
@@ -148,11 +165,61 @@ def cuda_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, reps: int = 5) -> float:
-    """Median host-clock ms of ``fn`` ending in a device synchronize."""
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device-side ms per call of ``fn``: ``iters`` calls captured into one
+    CUDA graph and replayed, median over ``reps`` replays.  The host's
+    dispatch is not in it (the gaps between the graph's kernels are), so it
+    needs no profiler run."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def cold_ms(fn, dev, reps: int = 7) -> float:
+    """Median CUDA-event ms of single calls of ``fn``, each after a 256 MB
+    buffer (five times the 50 MB L2) has been overwritten, so that the
+    call finds none of its inputs in the cache."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    fn()
+    times = []
+    for i in range(reps):
+        flush.fill_(i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 5, warm: bool = True) -> float:
+    """Median host-clock ms of ``fn`` ending in a device synchronize, after
+    a warm-up call unless the caller has just run the same code."""
+    import torch
+
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -163,16 +230,18 @@ def host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, iters: int = 10, top: int = 0):
+def device_profile(fn, iters: int = 10, top: int = 0, warm: bool = True):
     """Device busy time per call of ``fn`` (ms): the sum of the durations
     of every kernel and copy it puts on the card, from torch.profiler's
-    CUDA activity over ``iters`` calls after a warm-up, and the ``top``
-    device ops by time.  Host dispatch gaps are not in it."""
+    CUDA activity over ``iters`` calls after a warm-up (unless the caller
+    has just run the same code), and the ``top`` device ops by time.  Host
+    dispatch gaps are not in it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     # device activity only: a host-side trace of a whole SfM run fills the
     # profiler's buffers, and the sessions after it then record nothing
@@ -387,7 +456,7 @@ def time_row(row) -> dict:
     return t
 
 
-def time_all(dev, frames, k, pairs, cfg, out):
+def time_all(dev, frames, seq, k, pairs, cfg, out):
     """Phase 8, two-view part: kernel, plain and library times with their
     bounds; the frontend's frames/s and the pair latency."""
     import torch
@@ -415,6 +484,8 @@ def time_all(dev, frames, k, pairs, cfg, out):
                   .numel())
     n1, n2 = b1.shape[0], b2.shape[0]
     words = p // 32
+    # the batched entry as the SfM path launches it: all 12 frames at once
+    batch12 = torch.as_tensor(seq, device=dev).to(torch.float32)
     rows = {
         "fast_score": dict(
             run=lambda: fast_stencil.fast_score_map_batch(batch, thr),
@@ -423,6 +494,11 @@ def time_all(dev, frames, k, pairs, cfg, out):
             # one f32 read + one int32 write per pixel; 130 ops per pixel
             # (2 band edges, 16 x 2 compares, 32 x 3 run-recurrence steps)
             bytes=h * w * 8, ops=h * w * 130),
+        "fast_score_b12": dict(
+            run=lambda: fast_stencil.fast_score_map_batch(batch12, thr),
+            plain=lambda: fast_stencil.fast_score_map_plain(batch12, thr),
+            library=None,
+            bytes=len(seq) * h * w * 8, ops=len(seq) * h * w * 130),
         "brief_bits": dict(
             run=lambda: brief_pack.brief_bits(im, coords, pairs),
             plain=lambda: brief_pack.brief_bits_plain(im, coords, pairs),
@@ -477,31 +553,60 @@ def schur_inputs(dev, f: int, t: int, seed: int):
 
 def check_schur(dev) -> float:
     """Phase 5: the Schur kernel against its plain einsums at
-    SCHUR_SHAPES, within the worst-case f32 bound, and bitwise repeatable;
-    returns the largest |kernel - plain| over the shapes."""
+    SCHUR_PARITY_SHAPES, within the worst-case f32 bound, and bitwise
+    repeatable; once with operands that start at an odd offset into a
+    larger allocation and once on a side stream; returns the largest
+    |kernel - plain| over the cases."""
     import torch
 
     from photogrammetry_tpu_torch.kernels import schur
 
+    def offset_copy(x):
+        # the same values, 4-byte aligned only: a view one float into a
+        # larger buffer
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     cases = []
-    for f, t in SCHUR_SHAPES:
-        args = schur_inputs(dev, f, t, seed=f * t)
-        got = schur.schur_products(*args)
-        again = schur.schur_products(*args)
+    for f, t in SCHUR_PARITY_SHAPES:
+        args = schur_inputs(dev, f, t, seed=f * t + 1)
+        variants = [("plain_layout", args, None)]
+        if (f, t) in SCHUR_OFFSET_SHAPES:
+            variants.append(("offset_operands",
+                             [offset_copy(x) for x in args], None))
+            variants.append(("side_stream", args, side))
         ref = schur.schur_products_plain(*args)
         bounds = schur.error_bound(*args)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        ratio = max(float(((g.double() - r.double()).abs()
-                           / b.clamp(min=1e-30)).max())
-                    for g, r, b in zip(got, ref, bounds))
-        cases.append(dict(shape=[f, t], max_abs_err=max(
-            max_err(g, r) for g, r in zip(got, ref)),
-            max_err_over_bound=ratio,
-            repeatable=all(torch.equal(a, b) for a, b in zip(got, again))))
+        for label, ops, stream in variants:
+            if stream is not None:
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(stream):
+                    got = schur.schur_products(*ops)
+                    again = schur.schur_products(*ops)
+                torch.cuda.current_stream(dev).wait_stream(stream)
+            else:
+                got = schur.schur_products(*ops)
+                again = schur.schur_products(*ops)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ratio = max((float(((g.double() - r.double()).abs()
+                                / b.clamp(min=1e-30)).max())
+                         for g, r, b in zip(got, ref, bounds)
+                         if g.numel()), default=0.0)
+            cases.append(dict(
+                shape=[f, t], case=label,
+                slabs=schur.split_plan(f, t).slabs,
+                max_abs_err=max(max_err(g, r) for g, r in zip(got, ref)),
+                max_err_over_bound=ratio,
+                finite=all(bool(torch.isfinite(g).all()) for g in got),
+                repeatable=all(torch.equal(a, b)
+                               for a, b in zip(got, again))))
     emit({"phase": "schur_parity", "cases": cases})
-    bad = [c for c in cases
-           if not c["max_err_over_bound"] <= 1.0 or not c["repeatable"]]
+    bad = [c for c in cases if not c["max_err_over_bound"] <= 1.0
+           or not c["repeatable"] or not c["finite"]]
     if bad:
         raise AssertionError(f"Schur kernel outside its bound: {bad}")
     return max(c["max_abs_err"] for c in cases)
@@ -604,30 +709,47 @@ def check_remap(dev, seq) -> float:
     dmap = generate_distortion_map(h, w, DEWARP_COEFFS, device=dev)
     stack = torch.as_tensor(seq, device=dev).to(torch.float32)[..., None]
     rgb = torch.as_tensor(tinted_rgb(seq[0]), device=dev)[None]
-    # ragged: a map larger than the source that folds in the columns, with
-    # entries far outside and non-finite ones
-    hs, ws, ho, wo = 333, 517, 350, 540
-    ragged = torch.randint(0, 256, (2, hs, ws, 2), generator=gen,
-                           device=dev).to(torch.uint8)
-    rows = torch.rand((ho, wo), generator=gen, device=dev) * (hs + 6) - 3
-    cols = (torch.arange(wo, device=dev) - wo / 2.0).abs() * 1.9 + 0.3
-    wild = torch.stack([rows, cols[None, :].expand(ho, wo)], -1).contiguous()
-    wild[::7, ::5] = 1e9
-    wild[1::7, ::5] = -1e9
-    wild[2::7, ::5, 0] = float("nan")
-    wild[3::7, ::5, 1] = float("inf")
+    # ragged: maps larger and smaller than the source that fold in the
+    # columns, with entries far outside and non-finite ones
+    hs, ws = 333, 517
+
+    def wild_map(ho, wo):
+        rows = torch.rand((ho, wo), generator=gen, device=dev) * (hs + 6) - 3
+        cols = (torch.arange(wo, device=dev) - wo / 2.0).abs() * 1.9 + 0.3
+        m = torch.stack([rows, cols[None, :].expand(ho, wo)], -1).contiguous()
+        m[::7, ::5] = 1e9
+        m[1::7, ::5] = -1e9
+        m[2::7, ::5, 0] = float("nan")
+        m[3::7, ::5, 1] = float("inf")
+        return m
+
+    larger, smaller = wild_map(350, 540), wild_map(211, 301)
     cases = []
-    for label, imgs, m in (("frame_f32", stack[:1], dmap),
-                           ("frame_rgb_u8", rgb, dmap),
-                           ("stack_f32", stack, dmap),
-                           ("ragged_u8", ragged, wild)):
-        got = remap.remap_bilinear(imgs, m)
+
+    def check(label, imgs, m, frame_chunk=None):
+        got = remap.remap_bilinear(imgs, m, frame_chunk=frame_chunk)
         ref = remap.remap_bilinear_plain(imgs, m)
         cases.append(dict(case=label, images=list(imgs.shape),
                           map=list(m.shape), dtype=str(imgs.dtype),
+                          frame_chunk=frame_chunk,
                           nonzero=int((ref != 0).sum()),
                           max_abs_err=max_err(got, ref),
                           exact=bool(torch.equal(got, ref))))
+
+    check("frame_f32", stack[:1], dmap)
+    check("frame_rgb_u8", rgb, dmap)
+    check("stack_f32", stack, dmap)
+    # every channel count the kernel specialises (1-4) and one it does not,
+    # in both types; 5 frames in chunks of 2 (a last chunk of one frame);
+    # 211 x 301 output pixels are odd, so the frames of the uint8 outputs
+    # start at every byte alignment
+    for ch in (1, 2, 3, 4, 5):
+        noise = torch.randint(0, 256, (5, hs, ws, ch), generator=gen,
+                              device=dev)
+        for imgs in (noise.to(torch.uint8), noise.to(torch.float32) * 0.37):
+            tag = f"c{ch}_{str(imgs.dtype).split('.')[-1]}"
+            check(f"larger_{tag}", imgs[:2], larger)
+            check(f"smaller_chunk2_{tag}", imgs, smaller, frame_chunk=2)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     emit({"phase": "remap_parity", "cases": cases})
@@ -772,8 +894,19 @@ def time_remap(dev, seq, captured, cache_dir):
             bytes=dmap.numel() * 4 + 2 * imgs.numel() * imgs.element_size(),
             ops=h * w * (8 + 11 * b * c)))
         rows[label]["images"] = list(imgs.shape)
+        rows[label]["cold_call_ms"] = cold_ms(
+            lambda imgs=imgs: remap.remap_bilinear(imgs, dmap), dev)
+        rows[label]["library_cold_call_ms"] = cold_ms(
+            lambda nchw=nchw, grids=grids: F.grid_sample(
+                nchw, grids, mode="bilinear", padding_mode="zeros",
+                align_corners=True), dev)
         del nchw, grids
-    result = {"phase": "timing_remap", "rows": rows}
+    result = {"phase": "timing_remap", "rows": rows,
+              "inputs": "ms, call_ms: back-to-back calls on the same "
+                        "inputs, hot in the 50 MB L2 where they fit (33 MB "
+                        "and 29 MB do, the stack's 216 MB do not); "
+                        "cold_call_ms: single calls, each after 256 MB "
+                        "were written"}
     result["generate_map_ms"] = host_ms(
         lambda: generate_distortion_map(h, w, DEWARP_COEFFS, device=dev))
 
@@ -805,8 +938,9 @@ def time_dewarp_sfm(dev, captured, k, cache_dir):
         return run_incremental_sfm(frames, k, cfg, seed=DEWARP_SEED,
                                    device=dev)
 
-    wall = host_ms(run, reps=1)
-    busy, top = device_profile(run, iters=1, top=10)
+    # warm already: the SfM timing and dewarp_frames ran just before
+    wall = host_ms(run, reps=1, warm=False)
+    busy, top = device_profile(run, iters=1, top=10, warm=False)
     emit({"phase": "timing_dewarp_sfm", "frames": list(captured.shape),
           "wall_ms": wall, "frames_per_s": len(captured) * 1e3 / wall,
           "device_busy_ms": busy,
@@ -843,7 +977,25 @@ def time_sfm(dev, frames, k):
             bytes=2 * (6 * f * 3 * t) * 4 + 3 * t * 4 + (6 * f) ** 2 * 4
             + 6 * f * 4,
             ops=2 * (6 * f) ** 2 * 3 * t + 2 * 6 * f * 3 * t))
-    emit({"phase": "timing_schur", "rows": rows})
+        # device time per call (graph replay, both kernels and the gap
+        # between them) at each number of landmark slabs S; the plan's own
+        # choice is rows[...]["slabs"]
+        tiles_t = -(-t // schur.TILE_T)
+        rows[f"F{f}_T{t}"].update(
+            slabs=schur.split_plan(f, t).slabs,
+            graph_ms=graph_ms(lambda args=args: schur.schur_products(*args)),
+            graph_ms_by_slabs={
+                str(schur.split_plan(f, t, s).slabs): graph_ms(
+                    lambda args=args, s=s: schur.schur_products(*args,
+                                                                slabs=s))
+                for s in (1, 4, 8, 16, 32, 64, 128) if s <= tiles_t})
+    # what one launch of a kernel that does nothing costs: per call from
+    # the host (CUDA events around a loop) and on the device (graph replay)
+    empty = dict(call_ms=cuda_ms(lambda: schur.launch_empty(dev)),
+                 graph_ms=graph_ms(lambda: schur.launch_empty(dev)))
+    emit({"phase": "timing_schur", "rows": rows, "empty_launch": empty,
+          "inputs": "hot in L2: back-to-back calls on the same operands "
+                    "(1.8 MB and 9.5 MB)"})
 
     # bench_all.py:92-109's BA problem: 16 cameras x 4096 landmarks
     f, t, iters = 16, 4096, 10
@@ -893,7 +1045,7 @@ def time_sfm(dev, frames, k):
         wall = host_ms(run, reps=1)
         entry = dict(wall_ms=wall, frames_per_s=len(frames) * 1e3 / wall)
         if not plain:
-            busy, top = device_profile(run, iters=1, top=10)
+            busy, top = device_profile(run, iters=1, top=10, warm=False)
             entry.update(device_busy_ms=busy,
                          device_idle_share=max(0.0, 1 - busy / wall),
                          top_device_ops=top)
@@ -976,7 +1128,8 @@ def main() -> int:
         launches_pipeline = timed(
             "pipeline_demo", drive_pipeline, dev, seq[0],
             {n: counters[n] for n in ("remap", "fast_score")}, cache_dir)
-        timings = timed("timing", time_all, dev, frames, k, pairs, cfg, out)
+        timings = timed("timing", time_all, dev, frames, seq, k, pairs, cfg,
+                        out)
         remap_rows = timed("timing_remap", time_remap, dev, seq, captured,
                            cache_dir)
         schur_rows = timed("timing_sfm", time_sfm, dev, seq, k)

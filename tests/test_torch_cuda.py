@@ -68,27 +68,79 @@ def test_hamming_kernel_exact(dev):
         assert torch.equal(got, hamming.hamming_distance_matrix_plain(*args))
 
 
-def test_schur_kernel_within_bound(dev):
-    rng = np.random.default_rng(3)
-    f, t = 5, 700   # ragged: 6F is not a multiple of 32, T not of 64
-    args = [torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+def _schur_args(dev, f, t, seed=3):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=shape), dtype=torch.float32,
                          device=dev)
             for shape in ((f, t, 6, 3), (f, t, 6, 3), (t, 3))]
+
+
+def _assert_schur_within_bound(got, args):
+    s_ref, c_ref = schur.schur_products_plain(*args)
+    s_bound, c_bound = schur.error_bound(*args)
+    assert ((got[0].double() - s_ref.double()).abs() <= s_bound).all()
+    assert ((got[1].double() - c_ref.double()).abs() <= c_bound).all()
+
+
+def test_schur_kernel_within_bound(dev):
+    f, t = 5, 700   # ragged: F is not a multiple of the camera tile
+    args = _schur_args(dev, f, t)
     before = schur.schur_products.launches
     s, c = schur.schur_products(*args)
     torch.cuda.synchronize()
     assert schur.schur_products.launches == before + 1
-    s_ref, c_ref = schur.schur_products_plain(*args)
-    s_bound, c_bound = schur.error_bound(*args)
-    assert ((s.double() - s_ref.double()).abs() <= s_bound).all()
-    assert ((c.double() - c_ref.double()).abs() <= c_bound).all()
+    _assert_schur_within_bound((s, c), args)
     # a fixed summation order: the same bits twice
     s2, c2 = schur.schur_products(*args)
     assert torch.equal(s, s2) and torch.equal(c, c2)
 
 
+# one camera, a ragged camera tile with odd T (camera rows 8-byte aligned
+# only), one landmark (fewer than any split), no landmark, a ragged last
+# tile, and the two main shapes
+@pytest.mark.parametrize("f,t", [(1, 1024), (17, 701), (12, 1), (3, 0),
+                                 (6, 2000), (12, 1024), (16, 4096)])
+def test_schur_kernel_shapes(dev, f, t):
+    args = _schur_args(dev, f, t, seed=f + t)
+    got = schur.schur_products(*args)
+    again = schur.schur_products(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == (f, f, 6, 6) and got[1].shape == (f, 6)
+    _assert_schur_within_bound(got, args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("slabs", [1, 3, 22, 10 ** 6])
+def test_schur_kernel_any_split(dev, slabs):
+    args = _schur_args(dev, 7, 701)
+    got = schur.schur_products(*args, slabs=slabs)
+    torch.cuda.synchronize()
+    _assert_schur_within_bound(got, args)
+
+
+def test_schur_kernel_offset_operands_and_side_stream(dev):
+    args = _schur_args(dev, 17, 701)
+    ref = schur.schur_products(*args)
+    # the same values one float into a larger allocation: rows that are
+    # 4-byte aligned only take the kernel's narrow copies, same sums
+    shifted = []
+    for x in args:
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:].view(x.shape).copy_(x)
+        shifted.append(buf[1:].view(x.shape))
+    got = schur.schur_products(*shifted)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        on_side = schur.schur_products(*args)
+    torch.cuda.synchronize()
+    for a, b, c in zip(ref, got, on_side):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
-@pytest.mark.parametrize("b,c", [(1, 1), (3, 1), (1, 3), (2, 4)])
+@pytest.mark.parametrize("b,c", [(1, 1), (3, 1), (1, 3), (2, 4), (5, 2),
+                                 (3, 5)])
 def test_remap_kernel_exact(dev, dtype, b, c):
     rng = np.random.default_rng(4)
     hs, ws = 97, 131                       # ragged against the 32x8 block
@@ -99,20 +151,39 @@ def test_remap_kernel_exact(dev, dtype, b, c):
     wild = torch.tensor(np.stack([rng.uniform(-4, hs + 4, (hs + 9, ws + 14)),
                                   rng.uniform(-4, ws + 4, (hs + 9, ws + 14))],
                                  -1), dtype=torch.float32, device=dev)
+    wild[:, ws // 2:, 1] = wild[:, ws // 2:, 1].flip(1)     # and folded
     wild[::7, ::5] = 1e9                    # far outside, and non-finite
     wild[1::7, ::5] = -1e9
     wild[2::7, ::5, 0] = float("nan")
     wild[3::7, ::5, 1] = float("inf")
     wild[5, :, 1] = ws - 0.5                # half of the last column
-    for dmap in (radial, wild):
+    smaller = wild[3:60, 5:90].contiguous()
+    # an odd number of output pixels: the frames of a uint8 stack start at
+    # every byte alignment; frame_chunk 2 leaves a last chunk of one frame
+    # when B is odd
+    for dmap, chunk in ((radial, None), (wild, None), (smaller, 2)):
         before = remap.remap_bilinear.launches
-        got = remap.remap_bilinear(imgs, dmap)
+        got = remap.remap_bilinear(imgs, dmap, frame_chunk=chunk)
         torch.cuda.synchronize()
         assert remap.remap_bilinear.launches == before + 1
         ref = remap.remap_bilinear_plain(imgs, dmap)
         assert got.dtype == dtype and got.shape == ref.shape
         assert torch.equal(got, ref)
         assert torch.isfinite(got.float()).all()
+
+
+def test_remap_kernel_unaligned_map_and_images(dev):
+    rng = np.random.default_rng(5)
+    hs, ws = 33, 47
+    buf = torch.tensor(rng.integers(0, 256, 2 * hs * ws * 3 + 1),
+                       dtype=torch.uint8, device=dev)
+    imgs = buf[1:].view(2, hs, ws, 3)           # starts at an odd byte
+    mbuf = torch.tensor(rng.uniform(-2, 50, 40 * 50 * 2 + 1),
+                        dtype=torch.float32, device=dev)
+    dmap = mbuf[1:].view(40, 50, 2)             # 4-byte aligned only
+    got = remap.remap_bilinear(imgs, dmap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, remap.remap_bilinear_plain(imgs, dmap))
 
 
 def test_remap_wrapper_refuses_what_the_kernel_does_not_take(dev):
