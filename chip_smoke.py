@@ -14,7 +14,13 @@ Phases, each printing one JSON line with its seconds:
   4. parity: FAST, BRIEF and Hamming against their plain PyTorch versions
      on the card, at the two-view slice's shapes (a rendered frame, its
      2048 keypoints and 256 BRIEF pairs, the 2048x2048 Hamming matrix)
-     and at ragged ones; all outputs are integers and must be bit-exact;
+     and at ragged ones; all outputs are integers and must be bit-exact.
+     FAST also on the 12 frames, 13 noise frames, images smaller than the
+     7-px stencil, widths that are not a multiple of 4, a constant image,
+     an isolated peak (a ring wholly outside: score 16) and a quantised
+     image whose ring values sit on the band edges; Hamming at every N of
+     1, 17, 129, 512 and 2049 and P of 32, 256 and 512, with all rows
+     masked, with operands at an odd byte offset, and on a side stream;
   5. schur_parity: the Schur kernel against its plain einsums at the
      SfM path's F=12/T=1024, bench_all.py's F=16/T=4096, a ragged
      F=5/T=700 and one shape for each branch of the kernel (one camera, a
@@ -61,17 +67,21 @@ Phases, each printing one JSON line with its seconds:
      image library and are left out), launches counted, kernel vs
      ``plain=True`` keypoints identical;
  10. timing: each kernel, its plain version and, where one exists, one
-     PyTorch call computing the same function (Hamming: ``cdist(p=0)``;
+     PyTorch call computing the same function (Hamming: ``cdist(p=0)``,
+     at the forward path's 2048x2048 and the SfM path's 512x512;
      Schur: two matmuls on operands already flattened to (6F, 3T); remap:
      ``grid_sample`` on a grid normalised beforehand and, for uint8, an
      image converted to float beforehand), as
      device busy time per call (torch.profiler) and as CUDA-event time per
      call in a loop (host dispatch included), each beside its bound from
      the bytes moved and the operations done (inputs hot in the L2 where
-     they fit; the remap rows also single calls after the L2 was
+     they fit; every kernel also by CUDA-graph replay (``graph_ms``),
+     which stands in for the profiler's time where the profiler has run
+     dry; the remap rows also single calls after the L2 was
      overwritten; the Schur rows also device time per call by CUDA-graph
      replay at several numbers of landmark slabs, beside a launch of an
-     empty kernel; FAST also batched at B=12); the 1080p frontend's
+     empty kernel; FAST also batched at B=12), with the device ops of one
+     kernel call (Hamming must be a single launch); the 1080p frontend's
      frames/s and the two-view pair latency; ``bundle_adjust`` at F=16,
      T=4096, 10 iterations (bench_all.py's problem) in iterations/s with
      the kernel and plain; one 12-frame ``run_incremental_sfm`` after a
@@ -96,6 +106,7 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12     # dense, tensor cores
 # bench.py's 1080p frontend configuration and the two-view settings
 FRAME_SHAPE = (1080, 1920)
 FOCAL = 1560.0   # the 640-px scene's 520 scaled with the width
@@ -138,6 +149,14 @@ SCHUR_PARITY_SHAPES = SCHUR_SHAPES + ((1, 1024), (17, 701), (12, 1), (3, 0),
 # where the operands are also taken at an odd offset into a larger
 # allocation (4-byte aligned rows) and on a side stream
 SCHUR_OFFSET_SHAPES = ((12, 1024), (17, 701))
+# Hamming parity: (N1, N2) at every N of 1, 17, 129, 512 and 2049 (one
+# row, ragged tiles, the SfM shape, a ragged last tile of the largest
+# tile; odd and even N2), each at every P
+HAMMING_PARITY_SHAPES = ((1, 1), (17, 129), (129, 17), (512, 512),
+                         (2049, 2049), (1, 2049))
+HAMMING_PARITY_BITS = (32, 256, 512)
+# the SfM path's matrix: SfmConfig.max_keypoints rows a frame
+SFM_KEYPOINTS = 512
 
 
 def emit(obj) -> None:
@@ -261,9 +280,10 @@ def device_profile(fn, iters: int = 10, top: int = 0, warm: bool = True):
     return busy, ops
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -305,7 +325,7 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max().item())
 
 
-def check_kernels(dev, frames, pairs, cfg):
+def check_kernels(dev, frames, seq, pairs, cfg):
     """Phase 4: each kernel against its plain version on ``dev``; returns
     the worst |kernel - plain| per kernel (0 for bit-exact)."""
     import torch
@@ -320,19 +340,44 @@ def check_kernels(dev, frames, pairs, cfg):
     errs = {}
     cases = []
 
-    # FAST: the frame, a batch of both frames, a ragged noise frame
-    noise = torch.randint(0, 256, (2, 333, 517), generator=gen, device=dev)
-    for imgs, thr in ((im[None], cfg.detection_threshold),
-                      (torch.stack([torch.as_tensor(f, device=dev)
+    # FAST: the frame, a batch of both frames, the 12 frames, ragged noise
+    # frames (13 of them: more than the SfM batch), images smaller than the
+    # stencil, widths that are no multiple of 4 (the kernel's scalar
+    # stores), a constant image, an isolated peak (its ring wholly
+    # outside: 16) and ring values on the band edges (multiples of 12.5,
+    # threshold 25)
+    noise = torch.randint(0, 256, (13, 333, 517), generator=gen, device=dev)
+    edges = (torch.randint(0, 8, (2, 64, 94), generator=gen, device=dev)
+             * 12.5)
+    peak = torch.zeros((1, 31, 45), device=dev)
+    peak[0, 15, 20] = 255.0
+    fast_cases = [
+        ("frame", im[None], cfg.detection_threshold),
+        ("two_frames", torch.stack([torch.as_tensor(f, device=dev)
                                     for f in frames]),
-                       cfg.detection_threshold),
-                      (noise.float().contiguous(), 37.5)):
+         cfg.detection_threshold),
+        ("pan_12", torch.as_tensor(seq, device=dev).to(torch.float32),
+         cfg.detection_threshold),
+        ("noise_13", noise.float().contiguous(), 37.5),
+        ("tiny_1x1", noise[:1, :1, :1].float().contiguous(), 37.5),
+        ("tiny_5x6", noise[:2, :5, :6].float().contiguous(), 37.5),
+        ("tiny_6x7", noise[:1, :6, :7].float().contiguous(), 37.5),
+        ("tiny_7x7", noise[:1, :7, :7].float().contiguous(), 37.5),
+        ("w_odd", noise[:3, :37, :33].float().contiguous(), 37.5),
+        ("constant", torch.full((2, 40, 64), 77.0, device=dev), 10.0),
+        ("isolated_peak", peak, 50.0),
+        ("band_edges", edges.contiguous(), 25.0),
+    ]
+    for label, imgs, thr in fast_cases:
         got = fast_stencil.fast_score_map_batch(imgs, thr)
         ref = fast_stencil.fast_score_map_plain(imgs, thr)
         e = max_err(got, ref)
         errs["fast_score"] = max(errs.get("fast_score", 0.0), e)
-        cases.append(dict(kernel="fast_score", shape=list(imgs.shape),
+        cases.append(dict(kernel="fast_score", case=label,
+                          shape=list(imgs.shape),
                           corners=int((ref > 0).sum()), max_abs_err=e))
+    if int(fast_stencil.fast_score_map_plain(peak, 50.0)[0, 15, 20]) != 16:
+        raise AssertionError("the isolated peak does not score 16")
 
     # BRIEF: the frame's 2048 strongest keypoints, and ragged coords that
     # reach past every border
@@ -353,6 +398,23 @@ def check_kernels(dev, frames, pairs, cfg):
                                                       pairs.shape[0]],
                           ones=int(ref.sum()), max_abs_err=e))
 
+    def check_hamming(label, a, b, ma, mb, stream=None):
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                got = hamming.hamming_distance_matrix(a, b, ma, mb)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+        else:
+            got = hamming.hamming_distance_matrix(a, b, ma, mb)
+        ref = hamming.hamming_distance_matrix_plain(a, b, ma, mb)
+        e = max_err(got, ref)
+        errs["hamming"] = max(errs.get("hamming", 0.0), e)
+        cases.append(dict(kernel="hamming", case=label,
+                          shape=[a.shape[0], b.shape[0], a.shape[1]],
+                          tile=list(hamming.tile_plan(a.shape[0],
+                                                      b.shape[0])[:4]),
+                          max_abs_err=e))
+
     # Hamming: the frame's bits against themselves reversed, masked as the
     # frontend masks them, and ragged random bits
     bits = brief_pack.brief_bits_plain(im, coords, pairs)
@@ -363,12 +425,33 @@ def check_kernels(dev, frames, pairs, cfg):
     for a, b, ma, mb in ((bits, bits.flip(0).contiguous(), pts.mask,
                           pts.mask.flip(0)),
                          (rb1.to(torch.uint8), rb2.to(torch.uint8), m1, m2)):
-        got = hamming.hamming_distance_matrix(a, b, ma, mb)
-        ref = hamming.hamming_distance_matrix_plain(a, b, ma, mb)
-        e = max_err(got, ref)
-        errs["hamming"] = max(errs.get("hamming", 0.0), e)
-        cases.append(dict(kernel="hamming", shape=[a.shape[0], b.shape[0]],
-                          max_abs_err=e))
+        check_hamming("frame_bits" if a is bits else "random_bits", a, b,
+                      ma, mb)
+    # every N and P of the parity table, masked as the frontend masks
+    for n1, n2 in HAMMING_PARITY_SHAPES:
+        for p in HAMMING_PARITY_BITS:
+            a, b = (torch.randint(0, 2, (n, p), generator=gen, device=dev)
+                    .to(torch.uint8) for n in (n1, n2))
+            ma, mb = (torch.rand(n, generator=gen, device=dev) > 0.2
+                      for n in (n1, n2))
+            check_hamming("shape", a, b, ma, mb)
+    # all rows masked; operands one byte into a larger allocation (the
+    # kernel's byte loads in place of its 16-byte copies); a side stream
+    none = torch.zeros(rb1.shape[0], dtype=torch.bool, device=dev)
+    check_hamming("all_rows_masked", rb1.to(torch.uint8),
+                  rb2.to(torch.uint8), none, m2)
+
+    def offset_copy(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    check_hamming("odd_byte_offset", offset_copy(bits),
+                  offset_copy(bits.flip(0)), pts.mask, pts.mask.flip(0))
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    check_hamming("side_stream", bits, bits.flip(0).contiguous(), pts.mask,
+                  pts.mask.flip(0), stream=side)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     emit({"phase": "parity", "cases": cases,
@@ -440,19 +523,33 @@ def drive_main_path(dev, frames, k, r_gt, pairs, cfg, counters):
 
 def time_row(row) -> dict:
     """Times of one kernel row: ms / plain_ms / library_ms are device busy
-    time per call (profiler); *_call_ms the CUDA-event time per call in a
-    back-to-back loop, which includes the host's dispatch gaps when they
-    outlast the device work.  The bound comes from the row's bytes and
-    operations."""
-    b_ms, b_by = bound_ms(row["bytes"], row["ops"])
+    time per call (profiler); graph_ms the kernel's device time per call by
+    CUDA-graph replay (the plain versions make host tensors and cannot be
+    captured); *_call_ms the CUDA-event time per call in a back-to-back
+    loop, which includes the host's dispatch gaps when they outlast the
+    device work.  Once the profiler records nothing any more, ms falls to
+    graph_ms and plain_ms / library_ms to their call_ms (``*_ms_from``
+    says which).  ``kernel_ops``: the device ops of one kernel call, by
+    name.  The bound comes from the row's bytes and operations (at the
+    row's rate, f32 unless named)."""
+    b_ms, b_by = bound_ms(row["bytes"], row["ops"],
+                          row.get("ops_per_s", FP32_OPS_PER_S))
     t = dict(bound_ms=b_ms, bound_by=b_by, bytes=row["bytes"],
-             ops=row["ops"], library_ms=None, library_call_ms=None)
+             ops=row["ops"], library_ms=None, library_call_ms=None,
+             graph_ms=graph_ms(row["run"]))
     for key in ("run", "plain", "library"):
         if row[key] is None:
             continue
         pre = {"run": "", "plain": "plain_", "library": "library_"}[key]
-        t[pre + "ms"] = device_profile(row[key])[0]
         t[pre + "call_ms"] = cuda_ms(row[key])
+        try:
+            busy, ops = device_profile(row[key], top=4)
+            t[pre + "ms"], t[pre + "ms_from"] = busy, "profiler"
+            if key == "run":
+                t["kernel_ops"] = ops
+        except RuntimeError:
+            fallback = "graph_ms" if key == "run" else pre + "call_ms"
+            t[pre + "ms"], t[pre + "ms_from"] = t[fallback], fallback
     return t
 
 
@@ -482,38 +579,54 @@ def time_all(dev, frames, seq, k, pairs, cfg, out):
     inb = ((ends >= 0) & (ends < torch.tensor([h, w], device=dev))).all(-1)
     touched = int(torch.unique((ends[..., 0] * w + ends[..., 1])[inb])
                   .numel())
-    n1, n2 = b1.shape[0], b2.shape[0]
-    words = p // 32
     # the batched entry as the SfM path launches it: all 12 frames at once
     batch12 = torch.as_tensor(seq, device=dev).to(torch.float32)
+
+    def hamming_row(a, b, ma, mb):
+        n1, n2 = a.shape[0], b.shape[0]
+        return dict(
+            run=lambda: hamming.hamming_distance_matrix(a, b, ma, mb),
+            plain=lambda: hamming.hamming_distance_matrix_plain(a, b, ma, mb),
+            library=lambda: torch.cdist(a.float(), b.float(), p=0),
+            # the bits and masks read once, the distances written once; the
+            # products |a|.|b| of the identity, 2 N1 N2 P operations on
+            # uint8 (the int8 tensor-core rate)
+            bytes=(n1 + n2) * p + n1 + n2 + n1 * n2 * 4,
+            ops=2 * n1 * n2 * p, ops_per_s=INT8_OPS_PER_S)
+
+    # the SfM path's shape: its frames' SFM_KEYPOINTS strongest keypoints
+    sfm_bits = [x[:SFM_KEYPOINTS].contiguous() for x in (b1, b2, m1, m2)]
     rows = {
         "fast_score": dict(
             run=lambda: fast_stencil.fast_score_map_batch(batch, thr),
             plain=lambda: fast_stencil.fast_score_map_plain(batch, thr),
             library=None,
-            # one f32 read + one int32 write per pixel; 130 ops per pixel
-            # (2 band edges, 16 x 2 compares, 32 x 3 run-recurrence steps)
-            bytes=h * w * 8, ops=h * w * 130),
+            # one f32 read + one int32 write per pixel; 49 operations per
+            # pixel: 2 band edges and 16 x 2 compares in f32 and ~15 logic
+            # operations for the longest run (no pre-test taken off)
+            bytes=h * w * 8, ops=h * w * 49),
         "fast_score_b12": dict(
             run=lambda: fast_stencil.fast_score_map_batch(batch12, thr),
             plain=lambda: fast_stencil.fast_score_map_plain(batch12, thr),
             library=None,
-            bytes=len(seq) * h * w * 8, ops=len(seq) * h * w * 130),
+            bytes=len(seq) * h * w * 8, ops=len(seq) * h * w * 49),
         "brief_bits": dict(
             run=lambda: brief_pack.brief_bits(im, coords, pairs),
             plain=lambda: brief_pack.brief_bits_plain(im, coords, pairs),
             library=None,
             bytes=4 * touched + coords.numel() * 4 + pairs.numel() * 4
             + n * p, ops=n * p * 12),
-        "hamming": dict(
-            run=lambda: hamming.hamming_distance_matrix(b1, b2, m1, m2),
-            plain=lambda: hamming.hamming_distance_matrix_plain(b1, b2, m1,
-                                                                m2),
-            library=lambda: torch.cdist(b1.float(), b2.float(), p=0),
-            bytes=(n1 + n2) * p + n1 + n2 + n1 * n2 * 4,
-            ops=n1 * n2 * words * 3),
+        "hamming": hamming_row(b1, b2, m1, m2),
+        f"hamming_{SFM_KEYPOINTS}": hamming_row(*sfm_bits),
     }
     timings = {name: time_row(row) for name, row in rows.items()}
+    for name in ("hamming", f"hamming_{SFM_KEYPOINTS}"):
+        calls = sum(op["calls"] for op in timings[name].get("kernel_ops",
+                                                             [{"calls": 1}]))
+        if calls != 1:
+            raise AssertionError(f"{name}: {calls} device ops per call, "
+                                 f"expected the one kernel launch: "
+                                 f"{timings[name]['kernel_ops']}")
     emit({"phase": "timing", "kernels": timings,
           "brief_distinct_pixels": touched})
 
@@ -978,12 +1091,11 @@ def time_sfm(dev, frames, k):
             + 6 * f * 4,
             ops=2 * (6 * f) ** 2 * 3 * t + 2 * 6 * f * 3 * t))
         # device time per call (graph replay, both kernels and the gap
-        # between them) at each number of landmark slabs S; the plan's own
-        # choice is rows[...]["slabs"]
+        # between them; at the plan's own number of landmark slabs S in
+        # graph_ms) at each S
         tiles_t = -(-t // schur.TILE_T)
         rows[f"F{f}_T{t}"].update(
             slabs=schur.split_plan(f, t).slabs,
-            graph_ms=graph_ms(lambda args=args: schur.schur_products(*args)),
             graph_ms_by_slabs={
                 str(schur.split_plan(f, t, s).slabs): graph_ms(
                     lambda args=args, s=s: schur.schur_products(*args,
@@ -1105,7 +1217,7 @@ def main() -> int:
                          max_keypoints=MAX_KEYPOINTS, reduction="nms",
                          suppression_radius=4.0)
     pairs = make_pairs(cfg, device=dev)
-    errs = timed("parity", check_kernels, dev, frames, pairs, cfg)
+    errs = timed("parity", check_kernels, dev, frames, seq, pairs, cfg)
     errs["schur"] = timed("schur_parity", check_schur, dev)
     errs["remap"] = timed("remap_parity", check_remap, dev, seq)
 
@@ -1139,6 +1251,16 @@ def main() -> int:
     timings["schur"] = schur_rows["F%d_T%d" % SCHUR_SHAPES[0]]
     timings["remap"] = remap_rows["stack_f32"]
 
+    # the rows of the two kernels at their other main shape: FAST on the
+    # SfM path's 12-frame batch, Hamming at the SfM path's 512 x 512
+    other = {"fast_score": ("fast_score_b12", [len(seq), *seq.shape[1:]]),
+             "hamming": (f"hamming_{SFM_KEYPOINTS}",
+                         [SFM_KEYPOINTS, SFM_KEYPOINTS])}
+    for n, (row, shape) in other.items():
+        timings[n]["other_shape"] = dict(
+            shape=shape, **{key: timings[row][key] for key in (
+                "ms", "graph_ms", "call_ms", "bound_ms", "bound_by",
+                "plain_ms", "library_ms")})
     # launches: of the dewarp_sfm run, which goes through all five kernels;
     # the earlier paths' counts and the pipeline's beside it
     emit({"kernels": [
@@ -1152,6 +1274,8 @@ def main() -> int:
              call_ms=timings[n]["call_ms"],
              plain_call_ms=timings[n]["plain_call_ms"],
              library_call_ms=timings[n]["library_call_ms"],
+             graph_ms=timings[n].get("graph_ms"),
+             other_shape=timings[n].get("other_shape"),
              launches_forward=launches_forward.get(n, 0),
              launches_sfm=launches_sfm.get(n, 0),
              launches_pipeline=launches_pipeline.get(n, 0))

@@ -1,17 +1,36 @@
 #!/usr/bin/env python3
-"""Time the kernel variants that were tried while the Schur and remap
-kernels were redesigned, on one CUDA card, from the repository root:
+"""Time the kernel variants that were tried while the kernels were
+redesigned, on one CUDA card, from the repository root:
 
-    python3 experiments/kernel_variants/run.py
+    python3 experiments/kernel_variants/run.py [schur] [remap] [hamming] [fast]
 
-Builds the three sources beside this file with nvcc into
-``build/kernel_variants/`` and prints, for each variant, whether it agrees
-with the plain PyTorch version and its device time per call (a CUDA graph
-of 20 calls replayed, and single calls after the L2 was overwritten), next
-to the package's own kernel and the library call: the remap variants on a
-1080x1920 frame (float32, and uint8 RGB) and on 12 stacked float32 frames
-through the reference-coefficient distortion map; the Schur products with
-the two-kernel and the ticket reduction at several numbers of slabs.
+(all four groups without arguments).  Builds the sources beside this file
+with nvcc into ``build/kernel_variants/`` and prints, for each variant,
+whether it agrees with the plain PyTorch version and its device time per
+call (a CUDA graph of 20 calls replayed, and for remap single calls after
+the L2 was overwritten), next to the package's own kernel and the library
+call:
+
+- remap: on a 1080x1920 frame (float32, and uint8 RGB) and on 12 stacked
+  float32 frames through the reference-coefficient distortion map;
+- schur: the two-kernel and the ticket reduction at several numbers of
+  slabs;
+- hamming: at the forward path's 2048 x 2048 and the SfM path's 512 x 512
+  (256 bits), the package's tensor-core kernel at every tile it compiles,
+  the earlier popcount kernel (``hamming_popcount.cu``) on packed words
+  alone and with its two ``pack_bits`` calls, and the in-kernel ballot packing
+  with a register-blocked popcount (``hamming_ballot.cu``);
+- hamming also: where the 128 x 128 tile's time goes (phases left out),
+  staging by the TMA, an epilogue through shared memory, a persistent
+  form that stages the next tile while it stores this one, and tiles with
+  more warps (``hamming_probe.cu``);
+- fast: one rendered 1080p frame of the pan, the 12-frame batch, a noise
+  frame and a flat one, the earlier kernel (``fast_stencil_recurrence.cu``)
+  and the package's kernel with and without the compass pre-test, at 4 or 1
+  pixels a thread, at 64, 32 or 16 rows a tile and with its scalar
+  staging (``fast_variants.cu``), and a persistent, cp.async-pipelined
+  form (``fast_probe.cu``).
+
 The variant tables in the sources name the template arguments of each id.
 """
 from __future__ import annotations
@@ -29,7 +48,10 @@ import torch                                    # noqa: E402
 import torch.nn.functional as F                 # noqa: E402
 
 import chip_smoke as cs                         # noqa: E402
-from photogrammetry_tpu_torch.kernels import _build, remap, schur  # noqa: E402
+from photogrammetry_tpu_torch.kernels import (  # noqa: E402
+    _build, fast_stencil, hamming, remap, schur,
+)
+from photogrammetry_tpu_torch.ops.brief import pack_bits  # noqa: E402
 from photogrammetry_tpu_torch.ops.dewarp import generate_distortion_map  # noqa: E402
 
 
@@ -121,6 +143,127 @@ def schur_variants(dev):
                       round(cs.graph_ms(run), 5), flush=True)
 
 
+def hamming_variants(dev):
+    old = build("hamming_popcount").hamming_launch
+    old.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
+    ballot = build("hamming_ballot").hamming_ballot_launch
+    ballot.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
+    probe = build("hamming_probe").probe_launch
+    probe.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                      + [ctypes.c_void_p] * 4)
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = 256
+    for n in (2048, 512):
+        b1, b2 = (torch.randint(0, 2, (n, p), generator=gen, device=dev)
+                  .to(torch.uint8) for _ in range(2))
+        m1, m2 = (torch.rand(n, generator=gen, device=dev) > 0.1
+                  for _ in range(2))
+        ref = hamming.hamming_distance_matrix_plain(b1, b2, m1, m2)
+        out = torch.empty_like(ref)
+        tag = f"hamming {n}x{n}"
+        print(tag, "plan", tuple(hamming.tile_plan(n, n)), "package graph_ms",
+              cs.graph_ms(lambda: hamming.hamming_distance_matrix(b1, b2, m1,
+                                                                  m2)),
+              flush=True)
+        for tile in hamming.TILES:
+            plan = hamming.TilePlan(*tile, -(-n // tile[1]), -(-n // tile[0]))
+            report(f"{tag} mma tile {tile}", lambda plan=plan: hamming.launch(
+                b1, b2, m1.data_ptr(), m2.data_ptr(), out, plan),
+                out, ref, dev)
+        w1, w2 = pack_bits(b1).contiguous(), pack_bits(b2).contiguous()
+
+        def popcount(w1=w1, w2=w2):
+            _build.check(old(w1.data_ptr(), n, w2.data_ptr(), n, p // 32,
+                             m1.data_ptr(), m2.data_ptr(), out.data_ptr(),
+                             stream()), "hamming_popcount")
+
+        def packed_and_popcount():
+            popcount(pack_bits(b1).contiguous(), pack_bits(b2).contiguous())
+
+        report(f"{tag} earlier popcount kernel alone", popcount, out, ref, dev)
+        report(f"{tag} earlier popcount kernel with pack_bits",
+               packed_and_popcount, out, ref, dev)
+        report(f"{tag} ballot packing + popcount", lambda: _build.check(
+            ballot(b1.data_ptr(), n, b2.data_ptr(), n, p, m1.data_ptr(),
+                   m2.data_ptr(), out.data_ptr(), stream()), "ballot"),
+            out, ref, dev)
+        if n != 2048:
+            continue
+        # where the 128 x 128 tile's time goes, and the persistent form
+        zeros = torch.zeros_like(out)
+        print(f"{tag} fill_ of the output graph_ms",
+              cs.graph_ms(lambda: zeros.fill_(0)), flush=True)
+        for v, name in enumerate(("probe all", "probe no products",
+                                  "probe no stores", "probe no staging",
+                                  "probe stores only", "probe TMA staging",
+                                  "probe shared-memory epilogue",
+                                  "probe TMA staging + shared-memory "
+                                  "epilogue",
+                                  "mma tile (128, 128, 32, 32)",
+                                  "mma tile (256, 128, 64, 32)",
+                                  "mma tile (256, 128, 32, 32)",
+                                  "mma tile (128, 256, 32, 64)",
+                                  "persistent 1/block",
+                                  "persistent 2/block",
+                                  "persistent 3/block")):
+            report(f"{tag} {name}", lambda v=v: _build.check(probe(
+                v, b1.data_ptr(), n, b2.data_ptr(), n, p, m1.data_ptr(),
+                m2.data_ptr(), out.data_ptr(), stream()), "probe"),
+                out, ref, dev)
+
+
+def fast_variants(dev):
+    old = build("fast_stencil_recurrence").fast_score_launch
+    old.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                    + [ctypes.c_float, ctypes.c_void_p])
+    new = build("fast_variants").exp_launch
+    new.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    probe = build("fast_probe").probe_launch
+    probe.argtypes = new.argtypes
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    seq = torch.as_tensor(cs.render_sequence()[0], device=dev).float()
+    h, w = seq.shape[1:]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    noise = torch.randint(0, 256, (1, h, w), generator=gen,
+                          device=dev).float()
+    thr = 50.0   # chip_smoke.py's frontend threshold
+    cases = (("frame", seq[:1].contiguous()), ("batch12", seq),
+             ("noise", noise), ("flat", torch.full((1, h, w), 9.0,
+                                                   device=dev)))
+    for label, imgs in cases:
+        b = imgs.shape[0]
+        ref = fast_stencil.fast_score_map_plain(imgs, thr)
+        out = torch.empty_like(ref)
+        print(f"fast {label}", list(imgs.shape), "corners",
+              int((ref > 0).sum()), flush=True)
+        report(f"fast {label} earlier recurrence kernel",
+               lambda imgs=imgs: _build.check(
+                   old(imgs.data_ptr(), out.data_ptr(), b, h, w, thr,
+                       stream()), "fast_recurrence"), out, ref, dev)
+        for v, name in enumerate(("4px compass 64 rows (package)",
+                                  "4px no compass", "1px compass",
+                                  "1px no compass", "4px compass 32 rows",
+                                  "4px compass 16 rows",
+                                  "package with scalar staging")):
+            report(f"fast {label} {name}", lambda imgs=imgs, v=v:
+                   _build.check(new(v, imgs.data_ptr(), out.data_ptr(), b, h,
+                                    w, thr, stream()), "fast_variants"),
+                   out, ref, dev)
+        for v, name in enumerate(("probe pipelined 132 blocks",
+                                  "probe pipelined 264 blocks",
+                                  "probe pipelined 528 blocks",
+                                  "probe pipelined 1056 blocks")):
+            report(f"fast {label} {name}", lambda imgs=imgs, v=v:
+                   _build.check(probe(v, imgs.data_ptr(), out.data_ptr(), b,
+                                      h, w, thr, stream()), "fast_probe"),
+                   out, ref, dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -129,8 +272,10 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    schur_variants(dev)
-    remap_variants(dev)
+    groups = {"schur": schur_variants, "remap": remap_variants,
+              "hamming": hamming_variants, "fast": fast_variants}
+    for name in sys.argv[1:] or list(groups):
+        groups[name](dev)
     return 0
 
 

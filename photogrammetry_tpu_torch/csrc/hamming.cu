@@ -1,78 +1,283 @@
 // Hamming distance matrix for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel photogrammetry_tpu/kernels/hamming.py
-// (hamming_distance_matrix_pallas, _kernel), which computed |a|+|b|-2a.b as
-// a matrix product on the MXU.  Here descriptors come packed LSB-first into
-// 32-bit words (ops/brief.py pack_bits: 8 words for 256 bits) and each
-// distance is the exact integer sum over words of __popc(a ^ b) — no float
-// matrix product.
+// (hamming_distance_matrix_pallas, _kernel), which computed
 //
-// One thread per output (i, j): a 256-thread block computes a 32 x 32 tile,
-// with the tile's 32 A rows and 32 B rows staged in shared memory (B rows
-// padded by one word so a warp's 32 threads hit 32 banks).  Rows or columns
-// whose mask is 0 get INT_MAX, fused into the store.  Bound on the H100:
-// bytes — the (N1, N2) int32 output (16.8 MB at 2048 x 2048, about 5 us at
-// 3.35 TB/s); the inputs are 64 KB each and the popcounts are ~3 integer
-// operations per word.
+//   d[i, j] = |a_i| + |b_j| - 2 a_i . b_j
+//
+// over {0, 1} bits as one matrix product on the MXU.  Here the same identity
+// runs on the int8 tensor cores (mma.sync m16n8k32, u8 x u8 -> s32), straight
+// from the (N, P) uint8 bits the BRIEF kernel writes: no packing pass.  Both
+// operands already have the layout the instruction wants: A = bits1 row-major
+// with K (the P bits) contiguous, and B "col", i.e. bits2's N2 rows with K
+// contiguous, so nothing is transposed.
+//
+// What bounds it on the H100: bytes, the (N1, N2) int32 output (16.8 MB at
+// 2048 x 2048, 5.0 us at 3.35 TB/s); the tensor-core work, 2 N1 N2 P = 2.1 G
+// operations at P = 256, is about 1 us at the int8 rate.  At the SfM path's
+// 512 x 512 the bound (0.39 us) is below what one launch costs.
+//
+// The design: a block owns a BM x BN output tile (the wrapper's tile_plan
+// picks it, so that the grid covers the 132 SMs at the SfM shape as well).
+// It stages its BM rows of bits1 and BN rows of bits2 whole (P <= 512 bytes
+// a row) in shared memory with 16-byte cp.async (byte loads where an
+// operand's base is not 16-byte aligned; rows past N1 / N2 are zero), rows
+// PAD bytes apart so that the fragment reads of eight rows fall into eight
+// different groups of four banks.  Each row's sum |a_i| (|b_j|) comes from
+// the staged row by __dp4a, with the row's mask folded in as -1.  Each warp
+// accumulates a WM x WN sub-tile over P / 32 k-steps in s32 registers
+// (exact: at most 512 * 255 * 255 < 2^31).  The epilogue forms
+// na + nb - 2 acc, or INT_INF where either mask is False, writes the tile
+// from the fragments into shared memory (over the staged rows, which the
+// products no longer need) and stores it row by row as 16-byte words where
+// N2 % 4 == 0 (scalar otherwise): a warp writes 512 contiguous bytes at a
+// time, where the fragments' own 8-byte stores reach eight rows at once
+// (those took 14.0 us at 2048 x 2048 against 13.0; a TMA bulk copy a row
+// for the staging took 15.8; experiments/kernel_variants/run.py).  Plain
+// stores: mutual_nearest_matches reads the matrix twice right after, and
+// 16.8 MB stay in the 50 MB L2.
+//
+// Exactness: integer arithmetic throughout, equal to the plain version's f32
+// product wherever that is exact (sums of products below 2^24), which holds
+// for every {0, 1} input.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 32;
-constexpr int ROWS = 8;       // threadIdx.y extent; each thread does 4 rows
-constexpr int MAX_WORDS = 16;  // P <= 512 bits
+constexpr int MAX_BITS = 512;
+constexpr int PAD = 16;  // bytes after each staged row
+constexpr int OPAD = 8;  // ints after each row of the staged output tile
 constexpr int32_t INT_INF = 2147483647;
 
-__global__ void hamming_kernel(const uint32_t* __restrict__ a, int n1,
-                               const uint32_t* __restrict__ b, int n2,
-                               int words,
-                               const uint8_t* __restrict__ mask1,
-                               const uint8_t* __restrict__ mask2,
-                               int32_t* __restrict__ out) {
-  __shared__ uint32_t sa[TILE][MAX_WORDS + 1];
-  __shared__ uint32_t sb[TILE][MAX_WORDS + 1];
-  const int i0 = blockIdx.y * TILE;
-  const int j0 = blockIdx.x * TILE;
-  const int tid = threadIdx.y * TILE + threadIdx.x;
-  for (int e = tid; e < TILE * words; e += TILE * ROWS) {
-    const int r = e / words;
-    const int wd = e % words;
-    sa[r][wd] = (i0 + r < n1) ? a[(size_t)(i0 + r) * words + wd] : 0u;
-    sb[r][wd] = (j0 + r < n2) ? b[(size_t)(j0 + r) * words + wd] : 0u;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(__cvta_generic_to_global(src)));
+}
+
+// rows [r0, r0 + rows) of src (n rows of p bytes) into dst, PAD bytes apart
+__device__ __forceinline__ void stage(uint8_t* dst, const uint8_t* src,
+                                      int r0, int rows, int n, int p,
+                                      bool aligned, int tid, int threads) {
+  const int chunks = p / 16;
+  for (int e = tid; e < rows * chunks; e += threads) {
+    const int r = e / chunks;
+    const int c = e - r * chunks;
+    uint8_t* d = dst + r * (p + PAD) + c * 16;
+    if (r0 + r >= n) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    const uint8_t* s = src + (size_t)(r0 + r) * p + c * 16;
+    if (aligned) {
+      cp_async16(d, s);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        w[q] = (uint32_t)s[4 * q] | (uint32_t)s[4 * q + 1] << 8 |
+               (uint32_t)s[4 * q + 2] << 16 | (uint32_t)s[4 * q + 3] << 24;
+      }
+      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_u8(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
+hamming_mma_kernel(const uint8_t* __restrict__ a, int n1,
+                   const uint8_t* __restrict__ b, int n2, int p,
+                   const uint8_t* __restrict__ mask1,
+                   const uint8_t* __restrict__ mask2,
+                   int32_t* __restrict__ out) {
+  constexpr int THREADS = (BM / WM) * (BN / WN) * 32;
+  constexpr int MT = WM / 16;  // 16-row mma tiles of a warp
+  constexpr int NT = WN / 8;   // 8-column mma tiles of a warp
+  extern __shared__ uint4 smem[];
+  __shared__ int na[BM];
+  __shared__ int nb[BN];
+  const int stride = p + PAD;
+  uint8_t* sa = reinterpret_cast<uint8_t*>(smem);
+  uint8_t* sb = sa + BM * stride;
+  const int i0 = blockIdx.y * BM;
+  const int j0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+
+  const bool aligned = ((reinterpret_cast<uintptr_t>(a) |
+                         reinterpret_cast<uintptr_t>(b)) & 15) == 0;
+  stage(sa, a, i0, BM, n1, p, aligned, tid, THREADS);
+  stage(sb, b, j0, BN, n2, p, aligned, tid, THREADS);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // row sums, -1 where the row is masked out or past the end
+  for (int r = tid; r < BM + BN; r += THREADS) {
+    const bool is_a = r < BM;
+    const uint8_t* row = is_a ? sa + r * stride : sb + (r - BM) * stride;
+    unsigned s = 0;
+    for (int c = 0; c < p; c += 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + c);
+      s = __dp4a(v.x, 0x01010101u, s);
+      s = __dp4a(v.y, 0x01010101u, s);
+      s = __dp4a(v.z, 0x01010101u, s);
+      s = __dp4a(v.w, 0x01010101u, s);
+    }
+    const int gi = is_a ? i0 + r : j0 + r - BM;
+    const uint8_t* mask = is_a ? mask1 : mask2;
+    const bool ok = gi < (is_a ? n1 : n2) && (mask == nullptr || mask[gi]);
+    (is_a ? na[r] : nb[r - BM]) = ok ? (int)s : -1;
+  }
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // row (A, C) or column (B) within a tile
+  const int t4 = lane & 3;  // 4-byte group of K; column pair of C
+  const int wm0 = (warp / (BN / WN)) * WM;
+  const int wn0 = (warp % (BN / WN)) * WN;
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0;
+
+  for (int k = 0; k < p; k += 32) {
+    uint32_t af[MT][4];
+    uint32_t bf[NT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint8_t* base = sa + (wm0 + mt * 16 + g) * stride + k + t4 * 4;
+      af[mt][0] = *reinterpret_cast<const uint32_t*>(base);
+      af[mt][1] = *reinterpret_cast<const uint32_t*>(base + 8 * stride);
+      af[mt][2] = *reinterpret_cast<const uint32_t*>(base + 16);
+      af[mt][3] = *reinterpret_cast<const uint32_t*>(base + 8 * stride + 16);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint8_t* base = sb + (wn0 + nt * 8 + g) * stride + k + t4 * 4;
+      bf[nt][0] = *reinterpret_cast<const uint32_t*>(base);
+      bf[nt][1] = *reinterpret_cast<const uint32_t*>(base + 16);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_u8(acc[mt][nt], af[mt], bf[nt]);
+  }
+  __syncthreads();  // na / nb in place; the staged rows free
+
+  // the tile into shared memory, rows OS ints apart (OS = 8 mod 32: the
+  // 8-byte writes of a warp's eight rows and four column pairs fall into
+  // distinct banks; rows stay 16-byte aligned)
+  constexpr int OS = BN + OPAD;
+  int* so = reinterpret_cast<int*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wm0 + mt * 16 + half * 8 + g;
+      const int nai = na[r];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = wn0 + nt * 8 + t4 * 2;
+        const int nb0 = nb[c];
+        const int nb1 = nb[c + 1];
+        const int d0 = (nai < 0 || nb0 < 0)
+                           ? INT_INF
+                           : nai + nb0 - 2 * acc[mt][nt][half * 2];
+        const int d1 = (nai < 0 || nb1 < 0)
+                           ? INT_INF
+                           : nai + nb1 - 2 * acc[mt][nt][half * 2 + 1];
+        *reinterpret_cast<int2*>(so + r * OS + c) = make_int2(d0, d1);
+      }
+    }
   }
   __syncthreads();
 
-  const int j = j0 + threadIdx.x;
-  if (j >= n2) return;
-  const bool col_ok = mask2 == nullptr || mask2[j] != 0;
-  for (int rr = threadIdx.y; rr < TILE; rr += ROWS) {
-    const int i = i0 + rr;
+  // row by row, 16 bytes a thread
+  const bool vec = (n2 & 3) == 0;  // 16-byte stores stay aligned
+  for (int e = tid; e < BM * (BN / 4); e += THREADS) {
+    const int r = e / (BN / 4);
+    const int c = (e - r * (BN / 4)) * 4;
+    const int i = i0 + r;
+    const int j = j0 + c;
     if (i >= n1) break;
-    int d = 0;
-    for (int wd = 0; wd < words; ++wd) {
-      d += __popc(sa[rr][wd] ^ sb[threadIdx.x][wd]);
+    const int4 v = *reinterpret_cast<const int4*>(so + r * OS + c);
+    int32_t* o = out + (size_t)i * n2 + j;
+    if (vec && j + 4 <= n2) {
+      *reinterpret_cast<int4*>(o) = v;
+    } else {
+      if (j < n2) o[0] = v.x;
+      if (j + 1 < n2) o[1] = v.y;
+      if (j + 2 < n2) o[2] = v.z;
+      if (j + 3 < n2) o[3] = v.w;
     }
-    if (!col_ok || (mask1 != nullptr && mask1[i] == 0)) d = INT_INF;
-    out[(size_t)i * n2 + j] = d;
   }
+}
+
+// shared memory of one block: the staged rows, or the output tile after them
+template <int BM, int BN>
+constexpr size_t smem_bytes(int p) {
+  return (size_t)(BM + BN) * (p + PAD) > (size_t)BM * (BN + OPAD) * 4
+             ? (size_t)(BM + BN) * (p + PAD)
+             : (size_t)BM * (BN + OPAD) * 4;
+}
+
+template <int BM, int BN, int WM, int WN>
+int launch(const uint8_t* a, int n1, const uint8_t* b, int n2, int p,
+           const uint8_t* mask1, const uint8_t* mask2, int32_t* out,
+           cudaStream_t stream) {
+  auto kernel = hamming_mma_kernel<BM, BN, WM, WN>;
+  static bool attribute_set = false;  // per instantiation; setting twice is
+                                      // harmless
+  if (!attribute_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<BM, BN>(MAX_BITS));
+    if (err != cudaSuccess) return (int)err;
+    attribute_set = true;
+  }
+  const dim3 grid((n2 + BN - 1) / BN, (n1 + BM - 1) / BM);
+  const size_t smem = smem_bytes<BM, BN>(p);
+  kernel<<<grid, (BM / WM) * (BN / WN) * 32, smem, stream>>>(
+      a, n1, b, n2, p, mask1, mask2, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// a: (n1, words) u32; b: (n2, words) u32; mask1/mask2: (n1,)/(n2,) uint8 or
-// null; out: (n1, n2) int32.  Returns cudaError_t (cudaErrorInvalidValue for
-// words > MAX_WORDS).
-extern "C" int hamming_launch(const uint32_t* a, int n1, const uint32_t* b,
-                              int n2, int words, const uint8_t* mask1,
-                              const uint8_t* mask2, int32_t* out,
-                              void* stream) {
-  if (words < 1 || words > MAX_WORDS) return (int)cudaErrorInvalidValue;
-  const dim3 block(TILE, ROWS);
-  const dim3 grid((n2 + TILE - 1) / TILE, (n1 + TILE - 1) / TILE);
-  if (grid.x > 0 && grid.y > 0) {
-    hamming_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        a, n1, b, n2, words, mask1, mask2, out);
-  }
-  return (int)cudaGetLastError();
+// a: (n1, p) uint8; b: (n2, p) uint8, both with rows p bytes apart;
+// mask1/mask2: (n1,)/(n2,) uint8 or null; out: (n1, n2) int32.  The tile
+// (bm x bn outputs a block, wm x wn a warp) is one of those below, as
+// kernels/hamming.py's TILES lists them.  Returns cudaError_t
+// (cudaErrorInvalidValue for p outside (0, 512] or not a multiple of 32, or
+// a tile that is not compiled).
+extern "C" int hamming_launch(const uint8_t* a, int n1, const uint8_t* b,
+                              int n2, int p, const uint8_t* mask1,
+                              const uint8_t* mask2, int32_t* out, int bm,
+                              int bn, int wm, int wn, void* stream) {
+  if (p < 32 || p > MAX_BITS || p % 32) return (int)cudaErrorInvalidValue;
+  if (n1 <= 0 || n2 <= 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define TILE(BM, BN, WM, WN)                                             \
+  if (bm == BM && bn == BN && wm == WM && wn == WN)                      \
+    return launch<BM, BN, WM, WN>(a, n1, b, n2, p, mask1, mask2, out, s);
+  TILE(128, 128, 64, 32)
+  TILE(64, 128, 32, 32)
+  TILE(64, 64, 32, 32)
+  TILE(32, 64, 16, 32)
+  TILE(32, 32, 16, 16)
+#undef TILE
+  return (int)cudaErrorInvalidValue;
 }

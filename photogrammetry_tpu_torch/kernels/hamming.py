@@ -2,36 +2,70 @@
 
 Replaces the Pallas TPU kernel ``hamming_distance_matrix_pallas`` of
 photogrammetry_tpu/kernels/hamming.py, which ran |a|+|b|-2a.b on the MXU.
-Here the bits are packed LSB-first into 32-bit words (``pack_bits``) and
-each distance is an exact popcount sum, one thread per (i, j) over shared
-A and B tiles, with masked rows/columns set to INT_INF in the store.  Bound
-on the H100 by bytes (the (N1, N2) int32 output).  The plain PyTorch
-version is ``hamming_distance_matrix_plain`` (ops/match.py), which the
-wrapper runs for tensors on the CPU and never for CUDA tensors.
+Here the same identity runs on the int8 tensor cores (``mma.sync``
+m16n8k32, u8 x u8 -> s32) straight from the (N, P) uint8 bits: no packing
+pass, one launch per call.  A block stages its rows of both operands in
+shared memory, sums each row, and writes its output tile, masked
+rows/columns set to INT_INF, through shared memory as 16-byte stores.
+Bound on the H100 by
+bytes (the (N1, N2) int32 output).  The tile of a block is planned here
+(``tile_plan``) so that the SfM path's 512 x 512 matrices fill the card
+too.  The plain PyTorch version is ``hamming_distance_matrix_plain``
+(ops/match.py), which the wrapper runs for tensors on the CPU and never
+for CUDA tensors.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from photogrammetry_tpu_torch.kernels import _build
-from photogrammetry_tpu_torch.ops.brief import pack_bits
 from photogrammetry_tpu_torch.ops.match import \
     hamming_distance_matrix as hamming_distance_matrix_plain
 
 SOURCE = "photogrammetry_tpu_torch/csrc/hamming.cu"
 REPLACES = "photogrammetry_tpu/kernels/hamming.py:45"
-MAX_BITS = 512  # MAX_WORDS in csrc/hamming.cu
+MAX_BITS = 512  # MAX_BITS in csrc/hamming.cu
+SM_COUNT = 132  # H100 SXM
+# (block rows, block columns, warp rows, warp columns): the tiles the
+# kernel is compiled for, largest first (the TILE lines of csrc/hamming.cu)
+TILES = ((128, 128, 64, 32), (64, 128, 32, 32), (64, 64, 32, 32),
+         (32, 64, 16, 32), (32, 32, 16, 16))
+
+
+class TilePlan(NamedTuple):
+    """One call's output tiling: ``bm`` x ``bn`` outputs a block, ``wm`` x
+    ``wn`` a warp, and a grid of ``grid_x`` (columns) by ``grid_y`` (rows)
+    blocks."""
+    bm: int
+    bn: int
+    wm: int
+    wn: int
+    grid_x: int
+    grid_y: int
+
+
+def tile_plan(n1: int, n2: int) -> TilePlan:
+    """The largest tile whose grid still gives every SM a block (128 x 128
+    at 2048 x 2048: 256 blocks), else the smallest (32 x 32 at 512 x 512:
+    256 blocks, where 128 x 128 would leave 116 SMs idle)."""
+    for tile in TILES:
+        gx, gy = -(-n2 // tile[1]), -(-n1 // tile[0])
+        if gx * gy >= SM_COUNT:
+            break
+    return TilePlan(*tile, gx, gy)
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("hamming").hamming_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -49,6 +83,17 @@ def _mask_ptr(mask: torch.Tensor | None, n: int, dev) -> int | None:
     return mask.data_ptr()
 
 
+def launch(bits1: torch.Tensor, bits2: torch.Tensor, p1: int | None,
+           p2: int | None, out: torch.Tensor, plan: TilePlan) -> None:
+    """One launch of the kernel on checked operands (mask pointers from
+    ``_mask_ptr``) with the given tiling, on the current stream."""
+    (n1, p), n2 = bits1.shape, bits2.shape[0]
+    err = _launcher()(bits1.data_ptr(), n1, bits2.data_ptr(), n2, p, p1, p2,
+                      out.data_ptr(), plan.bm, plan.bn, plan.wm, plan.wn,
+                      torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "hamming_launch")
+
+
 def hamming_distance_matrix(bits1: torch.Tensor, bits2: torch.Tensor,
                             mask1: torch.Tensor | None = None,
                             mask2: torch.Tensor | None = None
@@ -59,30 +104,28 @@ def hamming_distance_matrix(bits1: torch.Tensor, bits2: torch.Tensor,
             or bits1.shape[1] != bits2.shape[1]:
         raise ValueError(f"hamming: shapes {tuple(bits1.shape)} and "
                          f"{tuple(bits2.shape)} do not pair")
-    if bits1.device != bits2.device:
+    dev = bits1.device
+    if bits2.device != dev:
         raise ValueError("hamming: bits on two devices")
-    if bits1.device.type == "cpu":
+    if dev.type == "cpu":
         return hamming_distance_matrix_plain(bits1, bits2, mask1, mask2)
-    if bits1.device.type != "cuda":
-        raise ValueError(f"hamming: unsupported device {bits1.device}")
     if bits1.dtype != torch.uint8 or bits2.dtype != torch.uint8:
         raise ValueError("hamming: needs uint8 bits")
+    if not bits1.is_contiguous() or not bits2.is_contiguous():
+        raise ValueError("hamming: needs contiguous bits")
     n1, p = bits1.shape
     n2 = bits2.shape[0]
     if p % 32 or not 0 < p <= MAX_BITS:
         raise ValueError(f"hamming: P={p} must be a multiple of 32 in "
                          f"(0, {MAX_BITS}]")
-    a = pack_bits(bits1).contiguous()
-    b = pack_bits(bits2).contiguous()
-    p1 = _mask_ptr(mask1, n1, bits1.device)
-    p2 = _mask_ptr(mask2, n2, bits1.device)
-    out = torch.empty((n1, n2), dtype=torch.int32, device=bits1.device)
+    p1 = _mask_ptr(mask1, n1, dev)
+    p2 = _mask_ptr(mask2, n2, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"hamming: unsupported device {dev}")
+    out = torch.empty((n1, n2), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
-    err = _launcher()(a.data_ptr(), n1, b.data_ptr(), n2, p // 32, p1, p2,
-                      out.data_ptr(),
-                      torch.cuda.current_stream(bits1.device).cuda_stream)
-    _build.check(err, "hamming_launch")
+    launch(bits1, bits2, p1, p2, out, tile_plan(n1, n2))
     hamming_distance_matrix.launches += 1
     return out
 

@@ -3,7 +3,7 @@
 
 ``hamming_distance_matrix`` here is the plain PyTorch version,
 |a| + |b| - 2 a.b as one f32 matrix product (exact: 0/1 products and sums
-of at most 2^24 terms, with TF32 off).  The frontend calls the popcount
+of at most 2^24 terms, with TF32 off).  The frontend calls the tensor-core
 kernel in ``kernels/hamming.py`` instead, whose wrapper runs this function
 only for tensors on the CPU.
 """

@@ -68,6 +68,133 @@ def test_hamming_kernel_exact(dev):
         assert torch.equal(got, hamming.hamming_distance_matrix_plain(*args))
 
 
+def _bits(dev, n, p, seed, high=2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, high, (n, p), generator=gen,
+                         device=dev).to(torch.uint8)
+
+
+def _masks(dev, n1, n2, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand(n1, generator=gen, device=dev) > 0.2,
+            torch.rand(n2, generator=gen, device=dev) > 0.2)
+
+
+# every N of 1, 17, 129, 512, 2049 (one row; ragged tiles; the SfM shape;
+# a ragged last tile at the largest tile), odd and even N2 (scalar and
+# 8-byte stores), at the smallest, the usual and the largest P
+@pytest.mark.parametrize("p", [32, 256, 512])
+@pytest.mark.parametrize("n1,n2", [(1, 1), (17, 129), (129, 17), (512, 512),
+                                   (2049, 2049), (2049, 2050), (1, 2049)])
+def test_hamming_kernel_shapes(dev, n1, n2, p):
+    b1 = _bits(dev, n1, p, seed=n1 + p)
+    b2 = _bits(dev, n2, p, seed=n2 + p + 1)
+    m1, m2 = _masks(dev, n1, n2, seed=n1 * n2)
+    for args in ((b1, b2), (b1, b2, m1, m2)):
+        before = hamming.hamming_distance_matrix.launches
+        got = hamming.hamming_distance_matrix(*args)
+        torch.cuda.synchronize()
+        assert hamming.hamming_distance_matrix.launches == before + 1
+        assert torch.equal(got, hamming.hamming_distance_matrix_plain(*args))
+
+
+@pytest.mark.parametrize("tile", hamming.TILES)
+def test_hamming_kernel_every_tile(dev, tile):
+    n1, n2, p = 97, 203, 256
+    b1, b2 = _bits(dev, n1, p, seed=5), _bits(dev, n2, p, seed=6)
+    m1, m2 = _masks(dev, n1, n2, seed=7)
+    plan = hamming.TilePlan(*tile, -(-n2 // tile[1]), -(-n1 // tile[0]))
+    out = torch.empty((n1, n2), dtype=torch.int32, device=dev)
+    hamming.launch(b1, b2, m1.data_ptr(), m2.data_ptr(), out, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(out, hamming.hamming_distance_matrix_plain(
+        b1, b2, m1, m2))
+
+
+def test_hamming_kernel_all_masked_and_any_byte(dev):
+    n1, n2, p = 300, 77, 256
+    b1, b2 = _bits(dev, n1, p, seed=8), _bits(dev, n2, p, seed=9)
+    off = torch.zeros(n1, dtype=torch.bool, device=dev)
+    got = hamming.hamming_distance_matrix(b1, b2, off, None)
+    assert (got == 2 ** 31 - 1).all()
+    got = hamming.hamming_distance_matrix(b1, b2, None, off[:n2])
+    assert (got == 2 ** 31 - 1).all()
+    # any byte values: at P = 256 the plain f32 product of bytes is still
+    # exact (256 * 255^2 < 2^24), and so is the kernel's integer one
+    w1, w2 = _bits(dev, n1, p, 10, 256), _bits(dev, n2, p, 11, 256)
+    got = hamming.hamming_distance_matrix(w1, w2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hamming.hamming_distance_matrix_plain(w1, w2))
+
+
+def test_hamming_kernel_offset_operands_and_side_stream(dev):
+    n1, n2, p = 513, 130, 256
+    b1, b2 = _bits(dev, n1, p, seed=12), _bits(dev, n2, p, seed=13)
+    m1, m2 = _masks(dev, n1, n2, seed=14)
+    ref = hamming.hamming_distance_matrix_plain(b1, b2, m1, m2)
+    # the same bits one byte into a larger allocation: the kernel's byte
+    # loads in place of its 16-byte copies
+    shifted = []
+    for x in (b1, b2):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:].view(x.shape).copy_(x)
+        shifted.append(buf[1:].view(x.shape))
+    assert shifted[0].data_ptr() % 16 != 0
+    got = hamming.hamming_distance_matrix(*shifted, m1, m2)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        on_side = hamming.hamming_distance_matrix(b1, b2, m1, m2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(on_side, ref)
+
+
+def _fast_case(dev, name):
+    rng = np.random.default_rng(len(name))
+    if name == "constant":
+        return torch.full((2, 40, 64), 77.0, device=dev), 10.0
+    if name == "isolated_peak":     # one pixel whose whole ring is outside
+        img = torch.zeros((1, 31, 45), device=dev)
+        img[0, 15, 20] = 255.0
+        return img, 50.0
+    if name == "band_edges":        # ring values exactly at c +- thr
+        img = rng.integers(0, 8, (3, 64, 96)) * 12.5
+        return torch.tensor(img, dtype=torch.float32, device=dev), 25.0
+    shapes = {"tiny_1x1": (1, 1, 1), "tiny_5x6": (2, 5, 6),
+              "tiny_6x7": (1, 6, 7), "tiny_7x7": (1, 7, 7),
+              "w_not_4": (2, 45, 70), "w_odd": (1, 37, 33),
+              "b13": (13, 40, 64), "frame": (1, 1080, 1920)}
+    img = rng.integers(0, 256, shapes[name]).astype(np.float32)
+    img[..., ::7, :] = 255.0        # saturated rows: equal-valued runs
+    return torch.tensor(img, device=dev), 30.0
+
+
+@pytest.mark.parametrize("name", ["constant", "isolated_peak", "band_edges",
+                                  "tiny_1x1", "tiny_5x6", "tiny_6x7",
+                                  "tiny_7x7", "w_not_4", "w_odd", "b13",
+                                  "frame"])
+def test_fast_kernel_shapes(dev, name):
+    imgs, thr = _fast_case(dev, name)
+    before = fast_stencil.fast_score_map_batch.launches
+    got = fast_stencil.fast_score_map_batch(imgs, thr)
+    torch.cuda.synchronize()
+    assert fast_stencil.fast_score_map_batch.launches == before + 1
+    ref = fast_stencil.fast_score_map_plain(imgs, thr)
+    assert torch.equal(got, ref)
+    if name == "isolated_peak":
+        assert got[0, 15, 20] == 16 and int((got > 0).sum()) == 1
+    if name == "constant":
+        assert not got.any()
+
+
+def test_fast_kernel_thresholds_on_the_band_edges(dev):
+    img = (torch.arange(64 * 96, device=dev).reshape(1, 64, 96) * 7 % 8
+           * 12.5).to(torch.float32)
+    for thr in (12.5, 25.0, 37.3, 37.5):
+        got = fast_stencil.fast_score_map_batch(img, thr)
+        assert torch.equal(got, fast_stencil.fast_score_map_plain(img, thr))
+
+
 def _schur_args(dev, f, t, seed=3):
     rng = np.random.default_rng(seed)
     return [torch.tensor(rng.normal(size=shape), dtype=torch.float32,
