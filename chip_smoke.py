@@ -18,9 +18,14 @@ Phases, each printing one JSON line with its seconds:
      FAST also on the 12 frames, 13 noise frames, images smaller than the
      7-px stencil, widths that are not a multiple of 4, a constant image,
      an isolated peak (a ring wholly outside: score 16) and a quantised
-     image whose ring values sit on the band edges; Hamming at every N of
-     1, 17, 129, 512 and 2049 and P of 32, 256 and 512, with all rows
-     masked, with operands at an odd byte offset, and on a side stream;
+     image whose ring values sit on the band edges; BRIEF also on keypoints
+     past and on every border, at 48 and 1024 pairs, on the 12 frames in
+     one call (512 keypoints a frame, masks ragged), steered by the
+     keypoints' own angles and by (cos, sin) that put rotated offsets on
+     rint ties, at 1, 8, 16 and 64 keypoints a block; Hamming at every N
+     of 1, 17, 129, 512 and 2049 and P of 32, 48, 96, 256, 512, 544 and
+     1024, with all rows masked, with operands at an odd byte offset, and
+     on a side stream;
   5. schur_parity: the Schur kernel against its plain einsums at the
      SfM path's F=12/T=1024, bench_all.py's F=16/T=4096, a ragged
      F=5/T=700 and one shape for each branch of the kernel (one camera, a
@@ -34,9 +39,12 @@ Phases, each printing one JSON line with its seconds:
      stacked frames, and on ragged batches of 1 to 5 channels in both
      types through maps larger and smaller than the source that fold and
      have entries far outside and non-finite, whole and in frame chunks
-     that do not divide the batch;
+     that do not divide the batch; and ``make_distortion_applier`` on
+     int16, int32 and float64 frames (through the f32 kernel and back)
+     equal to the plain applier;
   6. slice: the two frames through ``entry.forward`` with the kernels,
-     launch counts set to 0 just before and read just after; then the
+     launch counts set to 0 just before and read just after (BRIEF: two,
+     one a frame); then the
      same with the plain versions on the card under the same generator
      seed: keypoints, bits and matches identical, poses equal; >= 30
      matches and rotation error < 5 deg against ground truth;
@@ -44,7 +52,8 @@ Phases, each printing one JSON line with its seconds:
      --restarts 3``'s configuration) on the 12 frames at SFM_SEED with
      the kernels,
      launch counts set to 0 just before and read just after (every one of
-     the four kernels must have launched), then with ``plain=True`` under
+     the four kernels must have launched; BRIEF three times, once a restart
+     for all 12 frames), then with ``plain=True`` under
      the same seed; the batched frontend's features identical kernel vs
      plain; ATE < 0.2 scene units and > 80 landmarks in both runs (the
      bounds of tests/test_incremental.py); the largest camera-center
@@ -56,7 +65,8 @@ Phases, each printing one JSON line with its seconds:
      in a temporary directory, one stacked launch of the remap kernel) and
      ``run_incremental_sfm_robust(restarts=3)`` at DEWARP_SEED, launch
      counts set to 0 just before and read just after (all five kernels
-     must have launched); then the same with ``plain=True``: the dewarped
+     must have launched, BRIEF three times); then the same with
+     ``plain=True``: the dewarped
      frames bit-equal, the frontend's features identical, the dewarped
      interior within DEWARP_MEAN_TOL / DEWARP_P99_TOL grey levels of the
      clean frames, 12 camera centers, ATE < 0.2 and > 80 landmarks in both
@@ -66,6 +76,13 @@ Phases, each printing one JSON line with its seconds:
      uint8 RGB rendering of one frame (the read and write stages need an
      image library and are left out), launches counted, kernel vs
      ``plain=True`` keypoints identical;
+     steered: a 1080x1920 texture of smoothed noise and the same rotated
+     by 30 degrees through the frontend with ``oriented_brief`` (kernel
+     bits equal plain bits, BRIEF launched once a frame); its correct
+     mutual-nearest matches at least twice plain BRIEF's and at least 20;
+     one ``run_sfm --oriented-brief --restarts 3`` on its 12-frame
+     synthetic pan (BRIEF three launches), ATE and landmarks reported, not
+     gated;
  10. timing: each kernel, its plain version and, where one exists, one
      PyTorch call computing the same function (Hamming: ``cdist(p=0)``,
      at the forward path's 2048x2048 and the SfM path's 512x512;
@@ -80,13 +97,16 @@ Phases, each printing one JSON line with its seconds:
      dry; the remap rows also single calls after the L2 was
      overwritten; the Schur rows also device time per call by CUDA-graph
      replay at several numbers of landmark slabs, beside a launch of an
-     empty kernel; FAST also batched at B=12), with the device ops of one
-     kernel call (Hamming must be a single launch); the 1080p frontend's
+     empty kernel; FAST also batched at B=12; BRIEF at the forward path's
+     2048 x 256 and the SfM path's 12 x 512 x 256, each beside its gather
+     floor, ``gather_probe``'s graph_ms), with the device ops of one kernel
+     call (Hamming, BRIEF and the SfM path's describe stage must each be a
+     single launch); the 1080p frontend's
      frames/s and the two-view pair latency; ``bundle_adjust`` at F=16,
      T=4096, 10 iterations (bench_all.py's problem) in iterations/s with
      the kernel and plain; one 12-frame ``run_incremental_sfm`` after a
-     warm-up: frames/s from its wall time, device busy time, idle share
-     and top device ops; the remap kernel at its three 1080p shapes, map
+     warm-up (whose launches are counted: BRIEF once): frames/s from its
+     wall time, device busy time, idle share and top device ops; the remap kernel at its three 1080p shapes, map
      generation, ``dewarp_frames`` on the 12 frames, and one dewarp + SfM
      run's frames/s, busy time and idle share.
 Then the ``{"kernels": [...]}`` line and, last, the ok line.  Any failure
@@ -154,7 +174,19 @@ SCHUR_OFFSET_SHAPES = ((12, 1024), (17, 701))
 # tile; odd and even N2), each at every P
 HAMMING_PARITY_SHAPES = ((1, 1), (17, 129), (129, 17), (512, 512),
                          (2049, 2049), (1, 2049))
-HAMMING_PARITY_BITS = (32, 256, 512)
+# every P: one 512-column pass, a zero-filled tail (P % 32 != 0), byte
+# staging (P % 16 != 0), more than one pass
+HAMMING_PARITY_BITS = (32, 48, 96, 256, 512, 544, 1024)
+# BRIEF parity: pair counts beside the frontend's 256 (P % 32 != 0; four
+# times the default)
+BRIEF_PARITY_PAIRS = (48, 1024)
+# the steered-BRIEF phase: a 1080x1920 texture of noise smoothed at 3 and
+# 12 px and the same rotated by STEER_DEGREES about its centre; FAST at
+# threshold 8 (the texture's corners are shallow); a match is correct
+# within STEER_PX of where the rotation puts the keypoint
+STEER_DEGREES = 30.0
+STEER_THRESHOLD = 8.0
+STEER_PX = 2.0
 # the SfM path's matrix: SfmConfig.max_keypoints rows a frame
 SFM_KEYPOINTS = 512
 
@@ -333,7 +365,12 @@ def check_kernels(dev, frames, seq, pairs, cfg):
     from photogrammetry_tpu_torch.kernels import (
         brief_pack, fast_stencil, hamming,
     )
+    from photogrammetry_tpu_torch.ops.brief import (
+        angles_cos_sin, gaussian_pairs, keypoint_orientations,
+    )
     from photogrammetry_tpu_torch.ops.fast import extract_keypoints
+    from photogrammetry_tpu_torch.sfm.frontend import make_pairs
+    from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
 
     gen = torch.Generator(device=dev).manual_seed(1)
     im = torch.as_tensor(frames[0], device=dev)
@@ -379,8 +416,12 @@ def check_kernels(dev, frames, seq, pairs, cfg):
     if int(fast_stencil.fast_score_map_plain(peak, 50.0)[0, 15, 20]) != 16:
         raise AssertionError("the isolated peak does not score 16")
 
-    # BRIEF: the frame's 2048 strongest keypoints, and ragged coords that
-    # reach past every border
+    # BRIEF: the frame's 2048 strongest keypoints, and 1999 ragged coords
+    # (the last block has warps without a keypoint) that reach past every
+    # border and lie on it; the 12 frames in one call with the SfM path's
+    # 512 keypoints a frame, their masks ragged; P of 48, 256 and 1024;
+    # steered by the keypoints' own angles and by (cos, sin) that put
+    # rotated offsets on rint ties
     score = fast_stencil.fast_score_map_plain(im, cfg.detection_threshold)
     pts = extract_keypoints(score, cfg.max_keypoints)
     coords = pts.coords
@@ -389,14 +430,49 @@ def check_kernels(dev, frames, seq, pairs, cfg):
         torch.randint(-20, h + 20, (1999,), generator=gen, device=dev),
         torch.randint(-20, w + 20, (1999,), generator=gen, device=dev)],
         -1).to(torch.int32)
-    for c in (coords, ragged):
-        got = brief_pack.brief_bits(im, c, pairs)
-        ref = brief_pack.brief_bits_plain(im, c, pairs)
+    ragged[:4] = torch.tensor([[0, 0], [h - 1, w - 1], [0, w - 1],
+                               [h - 1, 0]], device=dev)
+    pan = torch.as_tensor(seq, device=dev).to(torch.float32)
+    sfm_cfg = SfmConfig().frontend
+    pan_pts = [extract_keypoints(s, sfm_cfg.max_keypoints) for s in
+               fast_stencil.fast_score_map_plain(
+                   pan, sfm_cfg.detection_threshold)]
+    pan_coords = torch.stack([x.coords for x in pan_pts])
+    pan_mask = torch.stack([x.mask for x in pan_pts])
+    cut = torch.randint(0, SFM_KEYPOINTS + 1, (len(seq), 1), generator=gen,
+                        device=dev)
+    pan_ragged = pan_mask & (torch.arange(SFM_KEYPOINTS, device=dev) < cut)
+    pan_angles = angles_cos_sin(keypoint_orientations(pan, pan_coords))
+    ties = torch.tensor([[0.5, 0.5], [1.5, 0.0], [-0.5, 0.5], [0.5, -1.5]],
+                        device=dev).repeat(SFM_KEYPOINTS // 4, 1)
+    ties = ties[None].expand(len(seq), -1, -1).contiguous()
+    sfm_pairs = make_pairs(sfm_cfg, device=dev)
+    more = {p: gaussian_pairs(gen, num_pairs=p) for p in BRIEF_PARITY_PAIRS}
+
+    def check_brief(label, imgs, c, prs, mask=None, cos_sin=None):
+        ref = brief_pack.brief_bits_plain(imgs, c, prs, mask, cos_sin)
+        got = brief_pack.brief_bits(imgs, c, prs, mask, cos_sin)
         e = max_err(got, ref)
         errs["brief_bits"] = max(errs.get("brief_bits", 0.0), e)
-        cases.append(dict(kernel="brief_bits", shape=[c.shape[0],
-                                                      pairs.shape[0]],
-                          ones=int(ref.sum()), max_abs_err=e))
+        cases.append(dict(kernel="brief_bits", case=label,
+                          shape=list(ref.shape), ones=int(ref.sum()),
+                          max_abs_err=e, exact=torch.equal(got, ref)))
+
+    check_brief("frame", im, coords, pairs)
+    check_brief("ragged", im, ragged, pairs)
+    for p, prs in more.items():
+        check_brief(f"frame_P{p}", im, coords, prs)
+        check_brief(f"ragged_P{p}_steered", im, ragged, prs,
+                    cos_sin=angles_cos_sin(torch.rand(
+                        ragged.shape[0], generator=gen, device=dev) * 6.3))
+    check_brief("pan12", pan, pan_coords, sfm_pairs, pan_mask)
+    check_brief("pan12_ragged_masks", pan, pan_coords, sfm_pairs, pan_ragged)
+    check_brief("pan12_steered", pan, pan_coords, sfm_pairs, pan_ragged,
+                pan_angles)
+    check_brief("pan12_rint_ties", pan, pan_coords, sfm_pairs, pan_mask,
+                ties)
+    check_brief("pan12_P1024_steered", pan, pan_coords, more[1024],
+                pan_ragged, pan_angles)
 
     def check_hamming(label, a, b, ma, mb, stream=None):
         if stream is not None:
@@ -456,7 +532,8 @@ def check_kernels(dev, frames, seq, pairs, cfg):
         torch.cuda.synchronize()
     emit({"phase": "parity", "cases": cases,
           "exact": all(c["max_abs_err"] == 0 for c in cases)})
-    bad = [c for c in cases if c["max_abs_err"] != 0]
+    bad = [c for c in cases
+           if c["max_abs_err"] != 0 or not c.get("exact", True)]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
     return errs
@@ -518,6 +595,9 @@ def drive_main_path(dev, frames, k, r_gt, pairs, cfg, counters):
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    if launches["brief_bits"] != 2:          # one describe a frame
+        raise AssertionError(f"BRIEF launches on the forward step: "
+                             f"{launches}")
     return out, launches
 
 
@@ -562,25 +642,53 @@ def time_all(dev, frames, seq, k, pairs, cfg, out):
     from photogrammetry_tpu_torch.kernels import (
         brief_pack, fast_stencil, hamming,
     )
-    from photogrammetry_tpu_torch.sfm.frontend import detect_and_describe
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        describe_bits, detect_and_describe, make_pairs, precompute_frontend,
+    )
+    from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
+    from photogrammetry_tpu_torch.utils.padding import PaddedPoints
 
     im = torch.as_tensor(frames[0], device=dev)
     batch = im[None]
     h, w = im.shape
     f1, f2 = out.frame1, out.frame2
-    coords = f1.points.coords
-    n, p = coords.shape[0], pairs.shape[0]
+    p = pairs.shape[0]
     b1, b2 = f1.bits, f2.bits
     m1, m2 = f1.points.mask, f2.points.mask
     thr = cfg.detection_threshold
 
-    # distinct pixels the BRIEF pairs of this run touch (in-bounds ends)
-    ends = coords[:, None, None, :].long() + pairs[None].long()
-    inb = ((ends >= 0) & (ends < torch.tensor([h, w], device=dev))).all(-1)
-    touched = int(torch.unique((ends[..., 0] * w + ends[..., 1])[inb])
-                  .numel())
     # the batched entry as the SfM path launches it: all 12 frames at once
     batch12 = torch.as_tensor(seq, device=dev).to(torch.float32)
+    sfm_cfg = SfmConfig().frontend
+    sfm_pairs = make_pairs(sfm_cfg, device=dev)
+    sfm_pts = precompute_frontend(batch12, sfm_pairs, sfm_cfg).points
+
+    def brief_row(imgs, pts, prs):
+        """The BRIEF kernel on (B, H, W) frames at the path's keypoints,
+        mask folded in.  Bytes: the distinct pixels the live keypoints'
+        in-bounds pairs touch, the live keypoints' coords, the mask and
+        pairs, the output (masked rows too: written as zeros); 12
+        operations a bit of a live keypoint (four sums, four bounds tests,
+        a compare, the index arithmetic).  A masked keypoint's coords are
+        not read and its bits not computed."""
+        c, m = pts.coords, pts.mask
+        ends = c[..., None, None, :].long() + prs.long()
+        inb = (((ends >= 0) & (ends < torch.tensor([h, w], device=dev)))
+               .all(-1).all(-1) & m[..., None])[..., None].expand(
+                   *ends.shape[:-1])
+        frame = torch.arange(imgs.shape[0], device=dev).view(-1, 1, 1, 1)
+        flat = (frame * h + ends[..., 0]) * w + ends[..., 1]
+        touched = int(torch.unique(flat[inb]).numel())
+        n, p = c.shape[0] * c.shape[1], prs.shape[0]
+        live = int(m.sum())
+        return dict(
+            run=lambda: brief_pack.brief_bits(imgs, c, prs, m),
+            plain=lambda: brief_pack.brief_bits_plain(imgs, c, prs, m),
+            library=None, floor=lambda: brief_pack.gather_probe(
+                imgs, c, prs, m),
+            bytes=4 * touched + live * 8 + m.numel()
+            + prs.numel() * 4 + n * p,
+            ops=live * p * 12, distinct_pixels=touched, live_keypoints=live)
 
     def hamming_row(a, b, ma, mb):
         n1, n2 = a.shape[0], b.shape[0]
@@ -610,25 +718,34 @@ def time_all(dev, frames, seq, k, pairs, cfg, out):
             plain=lambda: fast_stencil.fast_score_map_plain(batch12, thr),
             library=None,
             bytes=len(seq) * h * w * 8, ops=len(seq) * h * w * 49),
-        "brief_bits": dict(
-            run=lambda: brief_pack.brief_bits(im, coords, pairs),
-            plain=lambda: brief_pack.brief_bits_plain(im, coords, pairs),
-            library=None,
-            bytes=4 * touched + coords.numel() * 4 + pairs.numel() * 4
-            + n * p, ops=n * p * 12),
+        "brief_bits": brief_row(batch, PaddedPoints(
+            *(x[None] for x in f1.points)), pairs),
+        "brief_bits_b12": brief_row(batch12, sfm_pts, sfm_pairs),
         "hamming": hamming_row(b1, b2, m1, m2),
         f"hamming_{SFM_KEYPOINTS}": hamming_row(*sfm_bits),
     }
+    # the describe stage of the SfM path: one device op, the kernel (no
+    # mask multiply, no stacking)
+    _, describe_ops = device_profile(
+        lambda: describe_bits(batch12, sfm_pts, sfm_pairs, sfm_cfg), top=4)
     timings = {name: time_row(row) for name, row in rows.items()}
-    for name in ("hamming", f"hamming_{SFM_KEYPOINTS}"):
+    for name in ("brief_bits", "brief_bits_b12"):
+        timings[name].update(gather_floor_ms=graph_ms(rows[name]["floor"]),
+                             distinct_pixels=rows[name]["distinct_pixels"],
+                             live_keypoints=rows[name]["live_keypoints"])
+    timings["brief_bits_b12"]["describe_stage_ops"] = describe_ops
+    for name in ("hamming", f"hamming_{SFM_KEYPOINTS}", "brief_bits",
+                 "brief_bits_b12"):
         calls = sum(op["calls"] for op in timings[name].get("kernel_ops",
                                                              [{"calls": 1}]))
         if calls != 1:
             raise AssertionError(f"{name}: {calls} device ops per call, "
                                  f"expected the one kernel launch: "
                                  f"{timings[name]['kernel_ops']}")
-    emit({"phase": "timing", "kernels": timings,
-          "brief_distinct_pixels": touched})
+    if sum(op["calls"] for op in describe_ops) != 1:
+        raise AssertionError(f"the describe stage is not one launch: "
+                             f"{describe_ops}")
+    emit({"phase": "timing", "kernels": timings})
 
     ims = [torch.as_tensor(f, device=dev) for f in frames]
     k_dev = torch.as_tensor(k, device=dev)
@@ -799,6 +916,9 @@ def drive_sfm(dev, frames, k, centers, counters, phase="sfm", seed=SFM_SEED,
     if missing:
         raise AssertionError(f"kernels not launched on the {phase} path: "
                              f"{missing}")
+    if launches["brief_bits"] != 3:   # one describe of all 12 frames a restart
+        raise AssertionError(f"BRIEF launches on the {phase} path: "
+                             f"{launches}")
     return launches, out_frames
 
 
@@ -815,7 +935,9 @@ def check_remap(dev, seq) -> float:
     import torch
 
     from photogrammetry_tpu_torch.kernels import remap
-    from photogrammetry_tpu_torch.ops.dewarp import generate_distortion_map
+    from photogrammetry_tpu_torch.ops.dewarp import (
+        generate_distortion_map, make_distortion_applier,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(2)
     h, w = seq.shape[1:]
@@ -863,6 +985,26 @@ def check_remap(dev, seq) -> float:
             tag = f"c{ch}_{str(imgs.dtype).split('.')[-1]}"
             check(f"larger_{tag}", imgs[:2], larger)
             check(f"smaller_chunk2_{tag}", imgs, smaller, frame_chunk=2)
+    # the applier at dtypes the kernel does not take: through the f32 kernel
+    # and back, equal to the plain applier (three frames, signed values)
+    apply = make_distortion_applier(dmap, (h, w), device=dev)
+    apply_plain = make_distortion_applier(dmap, (h, w), device=dev,
+                                          plain=True)
+    signed = stack[:3, ..., 0] * 7.3 - 900.0
+    for dtype in (torch.int16, torch.int32, torch.float64):
+        imgs = signed.to(dtype)
+        before = remap.remap_bilinear.launches
+        got = apply(imgs)
+        launched = remap.remap_bilinear.launches - before
+        ref = apply_plain(imgs)
+        cases.append(dict(case=f"applier_{str(dtype).split('.')[-1]}",
+                          images=list(imgs.shape), map=list(dmap.shape),
+                          dtype=str(got.dtype), launches=launched,
+                          nonzero=int((ref != 0).sum()),
+                          max_abs_err=max_err(got, ref),
+                          exact=bool(torch.equal(got, ref)
+                                     and got.dtype == dtype
+                                     and launched == int(dev.type == "cuda"))))
     if dev.type == "cuda":
         torch.cuda.synchronize()
     emit({"phase": "remap_parity", "cases": cases})
@@ -919,6 +1061,102 @@ def drive_dewarp_sfm(dev, seq, captured, k, centers, counters, cache_dir):
         raise AssertionError(f"dewarped frames far from the clean ones: "
                              f"{stats}")
     return launches
+
+
+def steered_pair():
+    """A 1080x1920 texture (noise smoothed at 3 and 12 px, weighted by
+    scale, over 0..255) and the same rotated by STEER_DEGREES about its
+    centre (bilinear, zero outside), float32 numpy; and the map of a (row,
+    col) of the first to its place in the second."""
+    from scipy import ndimage
+
+    h, w = FRAME_SHAPE
+    rng = np.random.default_rng(SFM_SEED)
+    t = sum(ndimage.gaussian_filter(rng.normal(size=(h, w)), s) * s
+            for s in (3.0, 12.0))
+    img = ((t - t.min()) / (t.max() - t.min()) * 255.0).astype(np.float32)
+    a = np.radians(STEER_DEGREES)
+    rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+    c = np.array([(h - 1) / 2.0, (w - 1) / 2.0])
+    turned = ndimage.affine_transform(img, rot, offset=c - rot @ c, order=1)
+    return img, turned.astype(np.float32), lambda rc: (rc - c) @ rot + c
+
+
+def drive_steered(dev, counters, out_dir):
+    """The steered-BRIEF phase: the textured pair through the frontend with
+    ``oriented_brief`` (kernel bits equal to plain bits, launches counted),
+    the correct mutual-nearest matches steered and not (the gate of
+    tests/test_pyramid_sfm.py's roll test: steered >= 2x plain and >= 20),
+    and one ``run_sfm --oriented-brief --restarts 3`` on its 12-frame
+    synthetic pan, whose ATE and landmarks are reported, not gated (the
+    scene's round dots have no defined orientation)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from photogrammetry_tpu_torch.cli import run_sfm
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        FrontendConfig, detect_and_describe, make_pairs, match_pair,
+    )
+
+    img, turned, where = steered_pair()
+    ims = [torch.as_tensor(x, device=dev) for x in (img, turned)]
+    steer = FrontendConfig(detection_threshold=STEER_THRESHOLD,
+                           max_keypoints=MAX_KEYPOINTS,
+                           suppression_radius=4.0, hamming_threshold=75,
+                           subpixel=False, oriented_brief=True)
+    pairs = make_pairs(steer, device=dev)
+    result = {"phase": "steered", "frame_shape": list(FRAME_SHAPE),
+              "degrees": STEER_DEGREES}
+    for label, cfg in (("steered", steer),
+                       ("plain_brief",
+                        dataclasses.replace(steer, oriented_brief=False))):
+        for c in counters.values():
+            c.launches = 0
+        f1, f2 = (detect_and_describe(x, pairs, cfg) for x in ims)
+        launches = {n: c.launches for n, c in counters.items()}
+        r1, r2 = (detect_and_describe(x, pairs, cfg, plain=True)
+                  for x in ims)
+        m = match_pair(f1, f2, cfg)
+        ok = m.mask.cpu().numpy()
+        p1 = f1.points.coords.cpu().numpy()[ok].astype(np.float64)
+        p2 = (f2.points.coords.cpu().numpy()[m.idx2.cpu().numpy()[ok]]
+              .astype(np.float64))
+        result[label] = dict(
+            keypoints=[int(f1.points.count), int(f2.points.count)],
+            bits_equal_plain=bool(torch.equal(f1.bits, r1.bits)
+                                  and torch.equal(f2.bits, r2.bits)),
+            matches=int(ok.sum()),
+            correct=int((np.linalg.norm(where(p1) - p2, axis=1)
+                         < STEER_PX).sum()),
+            launches=launches)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        run_sfm.main(["--synthetic-frames", str(SFM_FRAMES), "--restarts",
+                      "3", "--oriented-brief", "--device", str(dev),
+                      "--cloud", f"{out_dir}/cloud.ply",
+                      "--trajectory", f"{out_dir}/trajectory.json"])
+    cli = json.loads(report.getvalue().splitlines()[0])
+    result["run_sfm_oriented_brief"] = dict(
+        seconds=time.perf_counter() - t0, ate=cli.get("ate"),
+        landmarks=cli["landmarks"], frames=cli["frames"],
+        quality=cli["quality"],
+        launches={n: c.launches for n, c in counters.items()})
+    emit(result)
+    st, pl = result["steered"], result["plain_brief"]
+    if not (st["bits_equal_plain"] and pl["bits_equal_plain"]):
+        raise AssertionError("steered BRIEF bits differ kernel vs plain")
+    if st["correct"] < 2 * max(pl["correct"], 1) or st["correct"] < 20:
+        raise AssertionError(f"steered BRIEF below its match gate: {result}")
+    if st["launches"]["brief_bits"] != 2 or \
+            result["run_sfm_oriented_brief"]["launches"]["brief_bits"] != 3:
+        raise AssertionError(f"steered BRIEF launches: {result}")
+    return result
 
 
 def drive_pipeline(dev, frame, counters, cache_dir):
@@ -1061,10 +1299,11 @@ def time_dewarp_sfm(dev, captured, k, cache_dir):
           "top_device_ops": top})
 
 
-def time_sfm(dev, frames, k):
+def time_sfm(dev, frames, k, counters):
     """Phase 8, SfM part: the Schur kernel at the SfM path's and
     bench_all.py's shapes; bundle_adjust iterations/s; one
-    run_incremental_sfm's frames/s, busy time and idle share."""
+    run_incremental_sfm's frames/s, busy time and idle share, and its
+    launches (BRIEF: one, for all 12 frames)."""
     import torch
 
     from photogrammetry_tpu_torch.kernels import schur
@@ -1154,8 +1393,13 @@ def time_sfm(dev, frames, k):
             return run_incremental_sfm(frames, k, cfg, seed=SFM_SEED,
                                        device=dev, plain=plain)
 
-        wall = host_ms(run, reps=1)
-        entry = dict(wall_ms=wall, frames_per_s=len(frames) * 1e3 / wall)
+        for c in counters.values():
+            c.launches = 0
+        run()                                           # the warm-up
+        launches = {n: c.launches for n, c in counters.items()}
+        wall = host_ms(run, reps=1, warm=False)
+        entry = dict(wall_ms=wall, frames_per_s=len(frames) * 1e3 / wall,
+                     launches=launches)
         if not plain:
             busy, top = device_profile(run, iters=1, top=10, warm=False)
             entry.update(device_busy_ms=busy,
@@ -1163,6 +1407,9 @@ def time_sfm(dev, frames, k):
                          top_device_ops=top)
         sfm[label] = entry
     emit(sfm)
+    if sfm["kernel"]["launches"]["brief_bits"] != 1:
+        raise AssertionError(f"BRIEF launches on run_incremental_sfm: "
+                             f"{sfm['kernel']['launches']}")
     return rows
 
 
@@ -1240,27 +1487,31 @@ def main() -> int:
         launches_pipeline = timed(
             "pipeline_demo", drive_pipeline, dev, seq[0],
             {n: counters[n] for n in ("remap", "fast_score")}, cache_dir)
+        timed("steered", drive_steered, dev, earlier, cache_dir)
         timings = timed("timing", time_all, dev, frames, seq, k, pairs, cfg,
                         out)
         remap_rows = timed("timing_remap", time_remap, dev, seq, captured,
                            cache_dir)
-        schur_rows = timed("timing_sfm", time_sfm, dev, seq, k)
+        schur_rows = timed("timing_sfm", time_sfm, dev, seq, k, earlier)
         timed("timing_dewarp_sfm", time_dewarp_sfm, dev, captured, k,
               cache_dir)
     # each kernel's row is taken at the shape the dewarp + SfM path gives it
     timings["schur"] = schur_rows["F%d_T%d" % SCHUR_SHAPES[0]]
     timings["remap"] = remap_rows["stack_f32"]
 
-    # the rows of the two kernels at their other main shape: FAST on the
-    # SfM path's 12-frame batch, Hamming at the SfM path's 512 x 512
+    # the rows of three kernels at their other main shape: FAST and BRIEF
+    # on the SfM path's 12-frame batch, Hamming at the SfM path's 512 x 512
     other = {"fast_score": ("fast_score_b12", [len(seq), *seq.shape[1:]]),
+             "brief_bits": ("brief_bits_b12", [len(seq), SFM_KEYPOINTS,
+                                               256]),
              "hamming": (f"hamming_{SFM_KEYPOINTS}",
                          [SFM_KEYPOINTS, SFM_KEYPOINTS])}
     for n, (row, shape) in other.items():
         timings[n]["other_shape"] = dict(
             shape=shape, **{key: timings[row][key] for key in (
                 "ms", "graph_ms", "call_ms", "bound_ms", "bound_by",
-                "plain_ms", "library_ms")})
+                "plain_ms", "library_ms") + (
+                    ("gather_floor_ms",) if n == "brief_bits" else ())})
     # launches: of the dewarp_sfm run, which goes through all five kernels;
     # the earlier paths' counts and the pipeline's beside it
     emit({"kernels": [
@@ -1275,6 +1526,7 @@ def main() -> int:
              plain_call_ms=timings[n]["plain_call_ms"],
              library_call_ms=timings[n]["library_call_ms"],
              graph_ms=timings[n].get("graph_ms"),
+             gather_floor_ms=timings[n].get("gather_floor_ms"),
              other_shape=timings[n].get("other_shape"),
              launches_forward=launches_forward.get(n, 0),
              launches_sfm=launches_sfm.get(n, 0),

@@ -3,15 +3,17 @@
 
     python -m photogrammetry_tpu_torch.cli.run_sfm [FRAMES_DIR] \\
         [--synthetic-frames 8] [--restarts 3] [--device cuda] \\
-        [--distortion-coeffs K1 K2 K3 K4 K5] [--dewarp-cache DIR]
+        [--distortion-coeffs K1 K2 K3 K4 K5] [--dewarp-cache DIR] \\
+        [--oriented-brief]
 
 A directory of frames (sorted), or the built-in synthetic star pan with
 exact ground truth for an ATE report → (with ``--distortion-coeffs``) the
 lens dewarp of every frame, ``dewarp_frames`` → ``run_incremental_sfm``
 (or its best-of-``--restarts`` form) → ``cloud.ply`` +
-``trajectory.json`` and one JSON report line.  The JAX CLI's other modes
-(loop closure, submaps, keyframes, mesh, checkpoint, pyramid, oriented
-BRIEF, precompute-matching) are not ported: their flags raise
+``trajectory.json`` and one JSON report line; ``--oriented-brief`` steers
+the BRIEF pairs by each keypoint's orientation.  The JAX CLI's other modes
+(loop closure, submaps, keyframes, mesh, checkpoint, pyramid,
+precompute-matching) are not ported: their flags raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -26,7 +28,7 @@ NOT_PORTED = ("--loop-closure",
               "--loop-mode", "--submap-frames", "--submap-overlap",
               "--submap-prior-weight", "--submap-refine", "--keyframe-disp",
               "--mesh", "--checkpoint", "--no-resume", "--pyramid-octaves",
-              "--oriented-brief", "--precompute-matching")
+              "--precompute-matching")
 
 
 def dewarp_frames(frames, coeffs, cache_dir: str, device="cuda",
@@ -65,6 +67,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cx", type=float, default=None)
     ap.add_argument("--cy", type=float, default=None)
     ap.add_argument("--detection-threshold", type=float, default=20.0)
+    ap.add_argument("--oriented-brief", action="store_true",
+                    help="steered (rotation-invariant) BRIEF descriptors "
+                         "in the tracking frontend (ops/brief.py)")
     ap.add_argument("--frame-stride", type=int, default=1,
                     help="temporal subsampling: keep every Nth frame")
     ap.add_argument("--distortion-coeffs", type=float, nargs=5, default=None,
@@ -150,7 +155,8 @@ def main(argv=None) -> int:
 
     cfg = SfmConfig(frontend=FrontendConfig(
         detection_threshold=args.detection_threshold, max_keypoints=512,
-        reduction="nms", suppression_radius=4.0, hamming_threshold=80),
+        reduction="nms", suppression_radius=4.0, hamming_threshold=80,
+        oriented_brief=bool(args.oriented_brief)),
         track_capacity=1024, collect_diagnostics=bool(args.diagnostics))
     with timer.stage("sfm"):
         if args.restarts > 1:

@@ -4,9 +4,10 @@ Replaces the Pallas TPU kernel ``hamming_distance_matrix_pallas`` of
 photogrammetry_tpu/kernels/hamming.py, which ran |a|+|b|-2a.b on the MXU.
 Here the same identity runs on the int8 tensor cores (``mma.sync``
 m16n8k32, u8 x u8 -> s32) straight from the (N, P) uint8 bits: no packing
-pass, one launch per call.  A block stages its rows of both operands in
-shared memory, sums each row, and writes its output tile, masked
-rows/columns set to INT_INF, through shared memory as 16-byte stores.
+pass, one launch per call, any P (staged 512 columns a pass, the tail
+zero-filled).  A block stages its rows of both operands in shared memory,
+sums each row, and writes its output tile, masked rows/columns set to
+INT_INF, through shared memory as 16-byte stores.
 Bound on the H100 by
 bytes (the (N1, N2) int32 output).  The tile of a block is planned here
 (``tile_plan``) so that the SfM path's 512 x 512 matrices fill the card
@@ -28,7 +29,7 @@ from photogrammetry_tpu_torch.ops.match import \
 
 SOURCE = "photogrammetry_tpu_torch/csrc/hamming.cu"
 REPLACES = "photogrammetry_tpu/kernels/hamming.py:45"
-MAX_BITS = 512  # MAX_BITS in csrc/hamming.cu
+CHUNK_BITS = 512  # columns staged a pass (CHUNK_BITS in csrc/hamming.cu)
 SM_COUNT = 132  # H100 SXM
 # (block rows, block columns, warp rows, warp columns): the tiles the
 # kernel is compiled for, largest first (the TILE lines of csrc/hamming.cu)
@@ -98,8 +99,8 @@ def hamming_distance_matrix(bits1: torch.Tensor, bits2: torch.Tensor,
                             mask1: torch.Tensor | None = None,
                             mask2: torch.Tensor | None = None
                             ) -> torch.Tensor:
-    """(N1, P), (N2, P) {0,1} uint8 → (N1, N2) int32 Hamming distances;
-    rows/cols whose mask is False get INT_INF."""
+    """(N1, P), (N2, P) {0,1} uint8 → (N1, N2) int32 Hamming distances,
+    any P (P = 0: all 0); rows/cols whose mask is False get INT_INF."""
     if bits1.dim() != 2 or bits2.dim() != 2 \
             or bits1.shape[1] != bits2.shape[1]:
         raise ValueError(f"hamming: shapes {tuple(bits1.shape)} and "
@@ -113,11 +114,7 @@ def hamming_distance_matrix(bits1: torch.Tensor, bits2: torch.Tensor,
         raise ValueError("hamming: needs uint8 bits")
     if not bits1.is_contiguous() or not bits2.is_contiguous():
         raise ValueError("hamming: needs contiguous bits")
-    n1, p = bits1.shape
-    n2 = bits2.shape[0]
-    if p % 32 or not 0 < p <= MAX_BITS:
-        raise ValueError(f"hamming: P={p} must be a multiple of 32 in "
-                         f"(0, {MAX_BITS}]")
+    n1, n2 = bits1.shape[0], bits2.shape[0]
     p1 = _mask_ptr(mask1, n1, dev)
     p2 = _mask_ptr(mask2, n2, dev)
     if dev.type != "cuda":

@@ -34,6 +34,7 @@ TILE_H, TILE_W = 8, 64      # output pixels per block (ROWS, SEG)
 TARGET_BLOCKS = 4 * SM_COUNT
 MAX_CHUNKS = 65535          # the chunk index is blockIdx.z
 MAX_FRAME_ELEMS = 0x7fffff00    # offsets within a frame are 32-bit
+KERNEL_DTYPES = (torch.float32, torch.uint8)
 
 
 def frame_plan(b: int, h: int, w: int) -> tuple[int, int]:
@@ -63,21 +64,22 @@ def remap_bilinear(images: torch.Tensor, dist_map: torch.Tensor,
                    frame_chunk: int | None = None) -> torch.Tensor:
     """(B, H_s, W_s, C) float32 or uint8 images through an (H, W, 2)
     float32 map of source (row, col) → (B, H, W, C) of the images' dtype:
-    bilinear, zero outside (per tap), uint8 rounded half to even.
-    ``frame_chunk`` overrides the plan's frames per block (for tests)."""
+    bilinear, zero outside (per tap), uint8 rounded half to even.  On the
+    CPU any real dtype (the plain version).  ``frame_chunk`` overrides the
+    plan's frames per block (for tests)."""
     if images.dim() != 4 or dist_map.dim() != 3 or dist_map.shape[-1] != 2:
         raise ValueError(f"remap_bilinear: images {tuple(images.shape)} "
                          f"(want B, H, W, C) and map "
                          f"{tuple(dist_map.shape)} (want H, W, 2)")
     if images.device != dist_map.device:
         raise ValueError("remap_bilinear: images and map on two devices")
-    if images.dtype not in (torch.float32, torch.uint8):
-        raise ValueError(f"remap_bilinear: {images.dtype} images; the kernel "
-                         f"takes float32 and uint8")
     if dist_map.dtype != torch.float32:
         raise ValueError("remap_bilinear: needs a float32 map")
     if images.device.type == "cpu":
         return remap_bilinear_plain(images, dist_map)
+    if images.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"remap_bilinear: {images.dtype} images; the kernel "
+                         f"takes float32 and uint8")
     if not images.is_contiguous() or not dist_map.is_contiguous():
         raise ValueError("remap_bilinear: needs contiguous tensors")
     if images.device.type != "cuda":

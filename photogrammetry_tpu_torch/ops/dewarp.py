@@ -247,18 +247,30 @@ def make_distortion_applier(dist_map, src_shape: tuple, *, device="cuda",
     (B, H, W[, C]) (numpy or tensor; moved to ``device``; a 3-d input whose
     leading two sizes equal ``src_shape`` is read as (H, W, C)) and returns
     the remapped tensor on ``device``: through the CUDA kernel on a card,
-    through ``remap_plain`` on the CPU or with ``plain=True``.
+    through ``remap_plain`` on the CPU or with ``plain=True``.  Images of a
+    real dtype other than float32 and uint8 go through the f32 kernel as
+    float32 and back (integers rounded half to even), which is what
+    ``remap_plain`` computes: the result is bit-identical to it.
     """
-    from photogrammetry_tpu_torch.kernels.remap import remap_bilinear
+    from photogrammetry_tpu_torch.kernels.remap import (
+        KERNEL_DTYPES, remap_bilinear,
+    )
 
     dev = resolve_device(device)
     dmap = torch.as_tensor(dist_map, dtype=torch.float32).to(dev).contiguous()
     if dmap.dim() != 3 or dmap.shape[-1] != 2:
         raise ValueError(f"distortion map of shape {tuple(dmap.shape)}")
-    remap = remap_plain if plain else remap_bilinear
+
+    def remap(images):
+        if plain or images.dtype in KERNEL_DTYPES:
+            return (remap_plain if plain else remap_bilinear)(images, dmap)
+        out = remap_bilinear(images.to(torch.float32), dmap)
+        if not images.dtype.is_floating_point:
+            out = torch.round(out)
+        return out.to(images.dtype)
 
     def apply(image):
         batch, undo = _as_batch(torch.as_tensor(image).to(dev), src_shape)
-        return undo(remap(batch.contiguous(), dmap))
+        return undo(remap(batch.contiguous()))
 
     return apply

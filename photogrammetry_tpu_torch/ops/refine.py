@@ -12,17 +12,18 @@ import torch.nn.functional as F
 
 
 def _box_filter(x: torch.Tensor, half: int) -> torch.Tensor:
-    """(H, W) -> same-shape (2*half+1)-box sum, zero-padded, separable.
+    """(..., H, W) -> same-shape (2*half+1)-box sum over the last two axes,
+    zero-padded, separable.
 
     Direct shifted adds in the JAX order, NOT cumsum (whose ~1e10 partial
     sums of the coordinate-weighted maps lose f32 exactness) and NOT
     conv2d (another summation order, and TF32 under cuDNN)."""
     k = 2 * half + 1
-    h, w = x.shape
+    h, w = x.shape[-2:]
     p = F.pad(x, (0, 0, half, half))
-    x = sum(p[i:i + h, :] for i in range(k))
+    x = sum(p[..., i:i + h, :] for i in range(k))
     p = F.pad(x, (half, half, 0, 0))
-    return sum(p[:, i:i + w] for i in range(k))
+    return sum(p[..., i:i + w] for i in range(k))
 
 
 def refine_subpixel_dense(image: torch.Tensor, coords: torch.Tensor,

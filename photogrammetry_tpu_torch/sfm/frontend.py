@@ -7,9 +7,10 @@ of photogrammetry_tpu/sfm/frontend.py).
 
 The three hot steps go through the hand-written kernels of ``kernels/``
 (FAST score, BRIEF bits, Hamming distances); on CPU tensors those wrappers
-run their plain PyTorch versions.  ``plain=True`` calls the plain versions
-directly on any device: it is the reference run that the kernels are held
-against on the card.
+run their plain PyTorch versions.  A batch of frames is described by one
+BRIEF launch, steered (``oriented_brief``) or not, the mask folded in.
+``plain=True`` calls the plain versions directly on any device: it is the
+reference run that the kernels are held against on the card.
 """
 from __future__ import annotations
 
@@ -21,7 +22,9 @@ import torch
 from photogrammetry_tpu_torch import resolve_device
 from photogrammetry_tpu_torch.core.camera import keypoints_to_xy
 from photogrammetry_tpu_torch.kernels import brief_pack, fast_stencil, hamming
-from photogrammetry_tpu_torch.ops.brief import gaussian_pairs
+from photogrammetry_tpu_torch.ops.brief import (
+    angles_cos_sin, gaussian_pairs, keypoint_orientations,
+)
 from photogrammetry_tpu_torch.ops.fast import extract_keypoints
 from photogrammetry_tpu_torch.ops.match import mutual_nearest_matches
 from photogrammetry_tpu_torch.ops.nms import compact_points, nms_keypoints_static
@@ -36,7 +39,8 @@ class FrontendConfig:
     The JAX FrontendConfig's fields without its two ``use_pallas_*`` flags:
     here the tensors' device decides between kernel and plain version.
     The port runs ``reduction`` 'nms' (with ``nms_impl`` 'static') and
-    'none', and unoriented BRIEF; the other options are JAX-only for now.
+    'none', and BRIEF unoriented or steered (``oriented_brief``); the other
+    options are JAX-only for now.
     """
     detection_threshold: float = 50.0
     max_keypoints: int = 1024
@@ -60,8 +64,6 @@ class FrontendConfig:
         if self.reduction == "nms" and self.nms_impl != "static":
             raise NotImplementedError(
                 f"nms_impl={self.nms_impl!r} is not ported yet")
-        if self.oriented_brief:
-            raise NotImplementedError("oriented_brief is not ported yet")
 
 
 class DescribedFrame(NamedTuple):
@@ -110,11 +112,17 @@ def detect_keypoints(gray: torch.Tensor, config: FrontendConfig,
 
 
 def describe_bits(gray: torch.Tensor, pts: PaddedPoints, pairs: torch.Tensor,
+                  config: FrontendConfig | None = None,
                   plain: bool = False) -> torch.Tensor:
-    """Masked BRIEF bits for detected keypoints."""
+    """Masked BRIEF bits for detected keypoints: (H, W) and (K, ...) points
+    → (K, P), or a batch (B, H, W) and (B, K, ...) → (B, K, P), one kernel
+    launch either way.  With ``config.oriented_brief`` the pairs are steered
+    by each keypoint's intensity-centroid angle (JAX's ``_bits``)."""
     bits_fn = brief_pack.brief_bits_plain if plain else brief_pack.brief_bits
-    bits = bits_fn(gray, pts.coords, pairs)
-    return bits * pts.mask[:, None].to(bits.dtype)
+    cos_sin = None
+    if config is not None and config.oriented_brief:
+        cos_sin = angles_cos_sin(keypoint_orientations(gray, pts.coords))
+    return bits_fn(gray, pts.coords, pairs, pts.mask, cos_sin)
 
 
 def refine_xy(gray: torch.Tensor, pts: PaddedPoints,
@@ -132,7 +140,7 @@ def detect_and_describe(gray: torch.Tensor, pairs: torch.Tensor,
     """Grayscale (H, W) float32 image → keypoints + BRIEF bits + xy."""
     pts = detect_keypoints(gray, config, plain)
     return DescribedFrame(points=pts,
-                          bits=describe_bits(gray, pts, pairs, plain),
+                          bits=describe_bits(gray, pts, pairs, config, plain),
                           xy=refine_xy(gray, pts, config))
 
 
@@ -141,26 +149,25 @@ def detect_and_describe_batch_split(grays: torch.Tensor, pairs: torch.Tensor,
                                     plain: bool = False) -> DescribedFrame:
     """(B, H, W) float32 frames → DescribedFrame with a leading B axis on
     every leaf.  The B score maps come from one launch of the batched FAST
-    kernel; NMS, BRIEF and refine then run frame by frame."""
+    kernel, NMS runs frame by frame, the B frames' bits come from one
+    launch of the BRIEF kernel, and refine runs frame by frame."""
     score_fn = (fast_stencil.fast_score_map_plain if plain
                 else fast_stencil.fast_score_map_batch)
     scores = score_fn(grays, config.detection_threshold)
-    frames = []
-    for gray, score in zip(grays, scores):
-        pts = _detect_from_score(score, config)
-        frames.append(DescribedFrame(
-            points=pts, bits=describe_bits(gray, pts, pairs, plain),
-            xy=refine_xy(gray, pts, config)))
-    return _join(frames, torch.stack)
+    pts = PaddedPoints(*map(torch.stack, zip(*(
+        _detect_from_score(score, config) for score in scores))))
+    bits = describe_bits(grays, pts, pairs, config, plain)
+    xy = torch.stack([refine_xy(gray, PaddedPoints(*(x[i] for x in pts)),
+                                config) for i, gray in enumerate(grays)])
+    return DescribedFrame(points=pts, bits=bits, xy=xy)
 
 
-def _join(frames, join) -> DescribedFrame:
-    """DescribedFrames joined leaf by leaf with ``join`` (torch.stack for
-    frames, torch.cat for batches)."""
+def _cat(batches) -> DescribedFrame:
+    """Batched DescribedFrames concatenated leaf by leaf."""
     def leaves(f):
         return [*f.points, f.bits, f.xy]
 
-    cols = [join(list(xs)) for xs in zip(*map(leaves, frames))]
+    cols = [torch.cat(list(xs)) for xs in zip(*map(leaves, batches))]
     return DescribedFrame(points=PaddedPoints(*cols[:4]), bits=cols[4],
                           xy=cols[5])
 
@@ -179,9 +186,9 @@ def precompute_frontend(frames: torch.Tensor, pairs: torch.Tensor,
                                   "not ported yet")
     f = frames.shape[0]
     chunk = max(1, min(chunk, f))
-    return _join([detect_and_describe_batch_split(frames[s:s + chunk],
-                                                  pairs, config, plain)
-                  for s in range(0, f, chunk)], torch.cat)
+    return _cat([detect_and_describe_batch_split(frames[s:s + chunk], pairs,
+                                                 config, plain)
+                 for s in range(0, f, chunk)])
 
 
 def frame_features(feats: DescribedFrame, t: int) -> DescribedFrame:

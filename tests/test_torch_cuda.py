@@ -55,6 +55,56 @@ def test_brief_kernel_exact(dev):
     assert torch.equal(got, brief_pack.brief_bits_plain(img, coords, pairs))
 
 
+def _brief_inputs(dev, b, n, p, seed, h=96, w=128):
+    """Frames, ragged-masked coords reaching past every border, pairs and
+    (cos, sin) with rint ties: (0.5, 0.5) and (1.5, 0) put the rotated
+    offsets of odd sums on .5, beside random angles."""
+    rng = np.random.default_rng(seed)
+    imgs = torch.tensor(rng.integers(0, 256, (b, h, w)), dtype=torch.float32,
+                        device=dev)
+    coords = torch.tensor(np.stack([rng.integers(-5, h + 5, (b, n)),
+                                    rng.integers(-5, w + 5, (b, n))], -1),
+                          dtype=torch.int32, device=dev)
+    mask = torch.tensor(np.arange(n)[None] < rng.integers(0, n + 1, (b, 1)),
+                        device=dev)
+    pairs = torch.tensor(np.rint(rng.normal(0, 20, (p, 2, 2))),
+                         dtype=torch.int32, device=dev)
+    theta = rng.uniform(0, 2 * np.pi, (b, n))
+    cs = np.stack([np.cos(theta), np.sin(theta)], -1)
+    cs[:, ::3] = (0.5, 0.5)
+    cs[:, 1::5] = (1.5, 0.0)
+    return imgs, coords, mask, pairs, torch.tensor(cs, dtype=torch.float32,
+                                                   device=dev)
+
+
+@pytest.mark.parametrize("p", [1, 48, 50, 256, 1024])
+@pytest.mark.parametrize("steered", [False, True])
+def test_brief_kernel_batched_masked(dev, p, steered):
+    imgs, coords, mask, pairs, cs = _brief_inputs(dev, 3, 301, p, seed=p)
+    cs = cs if steered else None
+    ref = brief_pack.brief_bits_plain(imgs, coords, pairs, mask, cs)
+    assert ref.any() and not ref[~mask].any()
+    before = brief_pack.brief_bits.launches
+    got = brief_pack.brief_bits(imgs, coords, pairs, mask, cs)
+    torch.cuda.synchronize()
+    assert brief_pack.brief_bits.launches == before + 1
+    assert torch.equal(got, ref)    # 301 % 8: warps without a keypoint
+
+
+def test_brief_kernel_single_frame_and_probe(dev):
+    imgs, coords, mask, pairs, cs = _brief_inputs(dev, 1, 77, 64, seed=3)
+    got = brief_pack.brief_bits(imgs[0], coords[0], pairs,
+                                cos_sin=cs[0])
+    assert got.shape == (77, 64)
+    assert torch.equal(got, brief_pack.brief_bits_plain(
+        imgs[0], coords[0], pairs, cos_sin=cs[0]))
+    before = brief_pack.brief_bits.launches
+    words = brief_pack.gather_probe(imgs, coords, pairs, mask)
+    torch.cuda.synchronize()
+    assert brief_pack.brief_bits.launches == before     # not counted
+    assert words.shape == (brief_pack.blocks_per_frame(77) * 256,)
+
+
 def test_hamming_kernel_exact(dev):
     rng = np.random.default_rng(2)
     b1 = torch.tensor(rng.integers(0, 2, (77, 256)), dtype=torch.uint8,
@@ -90,6 +140,22 @@ def test_hamming_kernel_shapes(dev, n1, n2, p):
     b1 = _bits(dev, n1, p, seed=n1 + p)
     b2 = _bits(dev, n2, p, seed=n2 + p + 1)
     m1, m2 = _masks(dev, n1, n2, seed=n1 * n2)
+    for args in ((b1, b2), (b1, b2, m1, m2)):
+        before = hamming.hamming_distance_matrix.launches
+        got = hamming.hamming_distance_matrix(*args)
+        torch.cuda.synchronize()
+        assert hamming.hamming_distance_matrix.launches == before + 1
+        assert torch.equal(got, hamming.hamming_distance_matrix_plain(*args))
+
+
+# any P: no bits, P % 16 != 0 (byte staging), P % 32 != 0 (a zero-filled
+# tail), one 512-column pass and more than one
+@pytest.mark.parametrize("p", [0, 8, 48, 96, 100, 544, 1024])
+@pytest.mark.parametrize("n1,n2", [(17, 129), (512, 512), (300, 1)])
+def test_hamming_kernel_any_p(dev, n1, n2, p):
+    b1 = _bits(dev, n1, p, seed=n1 + p)
+    b2 = _bits(dev, n2, p, seed=n2 + p + 1)
+    m1, m2 = _masks(dev, n1, n2, seed=n1 * n2 + p)
     for args in ((b1, b2), (b1, b2, m1, m2)):
         before = hamming.hamming_distance_matrix.launches
         got = hamming.hamming_distance_matrix(*args)
@@ -324,3 +390,19 @@ def test_remap_wrapper_refuses_what_the_kernel_does_not_take(dev):
         remap.remap_bilinear(imgs, dmap.cpu())
     apply = make_distortion_applier(dmap, (8, 8), device=dev)
     assert apply(np.zeros((8, 8), np.uint8)).device.type == "cuda"
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32, torch.float64,
+                                   torch.float16])
+def test_applier_any_real_dtype(dev, dtype):
+    rng = np.random.default_rng(6)
+    h, w = 120, 160
+    dmap = generate_distortion_map(h, w, [3e-4, 1e-7, 0, 0, 0], device=dev)
+    imgs = torch.tensor(rng.uniform(0, 1000, (3, h, w)), device=dev).to(dtype)
+    before = remap.remap_bilinear.launches
+    got = make_distortion_applier(dmap, (h, w), device=dev)(imgs)
+    torch.cuda.synchronize()
+    assert remap.remap_bilinear.launches == before + 1
+    assert got.dtype == dtype
+    ref = make_distortion_applier(dmap, (h, w), device=dev, plain=True)(imgs)
+    assert torch.equal(got, ref)

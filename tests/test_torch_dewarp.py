@@ -297,8 +297,9 @@ def test_wrapper_runs_plain_on_cpu_and_checks_inputs():
     for b in range(2):
         assert torch.equal(out[b],
                            dewarp.apply_distortion_map(imgs[b], dmap))
-    with pytest.raises(ValueError, match="float32 and uint8"):
-        remap.remap_bilinear(imgs.to(torch.int32), dmap)
+    # on the CPU any real dtype goes to the plain version
+    assert torch.equal(remap.remap_bilinear(imgs.to(torch.int32), dmap),
+                       dewarp.remap_plain(imgs.to(torch.int32), dmap))
     with pytest.raises(ValueError, match="float32 map"):
         remap.remap_bilinear(imgs, dmap.double())
     with pytest.raises(ValueError, match="want B, H, W, C"):
@@ -329,6 +330,46 @@ def test_applier_equals_plain_and_stacks():
     with pytest.raises(ValueError):
         dewarp.make_distortion_applier(np.zeros((h, w)), (h, w),
                                        device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["int16", "int32", "float64", "float16"])
+def test_applier_takes_any_real_dtype(dtype):
+    """The applier on images neither float32 nor uint8: through the f32
+    remap and back, bit-identical to ``apply_distortion_map``; against the
+    JAX applier the module's tolerances (2 ulp of f32, integers 1 apart at
+    rounding ties moved by them; float16 one half-precision ulp where the
+    f32 sum sits on a float16 rounding boundary; JAX without x64 computes
+    a float64 image in float32)."""
+    rng = np.random.default_rng(15)
+    h, w = 40, 56
+    if dtype.startswith("int"):
+        img = rng.integers(-1000, 1000, (2, h, w)).astype(dtype)
+    else:
+        img = rng.uniform(0, 255, (2, h, w)).astype(dtype)
+    dmap = dewarp.generate_distortion_map(h, w, REF_COEFFS, device="cpu")
+    apply = dewarp.make_distortion_applier(dmap.numpy(), (h, w),
+                                           device="cpu")
+    got = apply(img)
+    assert got.dtype == _t(img).dtype and got.shape == img.shape
+    japply = jdewarp.make_distortion_applier(dmap.numpy(), (h, w),
+                                             use_pallas=False)
+    for i in range(2):
+        assert torch.equal(got[i], dewarp.apply_distortion_map(_t(img[i]),
+                                                               dmap))
+        ref = np.asarray(japply(jnp.asarray(img[i]))).astype(np.float64)
+        one = got[i].numpy().astype(np.float64)
+        if dtype.startswith("int"):
+            differ = one != ref
+            assert np.abs(one - ref).max() <= 1
+            sums = dewarp.apply_distortion_map(_t(img[i]).float(), dmap)
+            assert (np.abs(sums.numpy()[differ] % 1.0 - 0.5) < 1e-3).all()
+            assert differ.mean() < 2e-3
+        elif dtype == "float16":
+            differ = one != ref
+            np.testing.assert_allclose(one, ref, rtol=2.0 ** -10, atol=0)
+            assert differ.mean() < 2e-3
+        else:
+            np.testing.assert_allclose(one, ref, rtol=4e-7, atol=0)
 
 
 def test_synthesize_then_dewarp_round_trip():

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from photogrammetry_tpu_torch.kernels import fast_stencil, hamming
+from photogrammetry_tpu_torch.kernels import brief_pack, fast_stencil, hamming
 from photogrammetry_tpu_torch.ops.fast import RING_OFFSETS
 
 ALL_MASKS = torch.arange(1 << 16)
@@ -104,10 +104,10 @@ def test_hamming_tiles_fit_the_kernel(tile):
     assert wm % 16 == 0 and wn % 8 == 0         # whole m16n8k32 tiles
     threads = (bm // wm) * (bn // wn) * 32
     assert 32 <= threads <= 1024
-    # both operands' rows staged whole at the largest P, 16 bytes apart
+    # one pass of both operands' rows (CHUNK_BITS columns), 16 bytes apart
     # (or, after the products, the int32 output tile, rows 8 ints apart),
     # and the row sums within a block's 227 KB of shared memory
-    staged = max((bm + bn) * (hamming.MAX_BITS + 16), bm * (bn + 8) * 4)
+    staged = max((bm + bn) * (hamming.CHUNK_BITS + 16), bm * (bn + 8) * 4)
     assert staged + 4 * (bm + bn) <= 232448
 
 
@@ -116,6 +116,22 @@ def test_hamming_tiles_are_the_ones_the_source_compiles():
     compiled = re.findall(r"^\s*TILE\((\d+), (\d+), (\d+), (\d+)\)$",
                           src.read_text(), re.M)
     assert tuple(tuple(map(int, t)) for t in compiled) == hamming.TILES
+
+
+def test_hamming_chunk_is_the_one_the_source_stages():
+    src = (Path(hamming.__file__).parents[1] / "csrc" / "hamming.cu")
+    staged = re.findall(r"^constexpr int CHUNK_BITS = (\d+);", src.read_text(),
+                        re.M)
+    assert staged == [str(hamming.CHUNK_BITS)]
+    assert hamming.CHUNK_BITS % 32 == 0          # whole k-steps a pass
+
+
+@pytest.mark.parametrize("name", ["THREADS", "SMEM_LIMIT"])
+def test_brief_constants_are_the_ones_the_source_uses(name):
+    src = (Path(brief_pack.__file__).parents[1] / "csrc" / "brief_pack.cu")
+    found = re.findall(rf"^constexpr int {name} = (\d+);", src.read_text(),
+                       re.M)
+    assert found == [str(getattr(brief_pack, name))]
 
 
 def _meta(shape, dtype=torch.uint8):
@@ -138,12 +154,12 @@ def test_hamming_wrapper_refuses(case):
             "two devices"
     elif case == "dtype":
         args, match = (b1, _meta((30, 256), torch.int32)), "uint8"
-    elif case == "p_not_32":
-        args, match = (_meta((40, 48)), _meta((30, 48))), "multiple of 32"
-    elif case == "p_zero":
-        args, match = (_meta((40, 0)), _meta((30, 0))), "multiple of 32"
-    elif case == "p_too_big":
-        args, match = (_meta((40, 544)), _meta((30, 544))), "multiple of 32"
+    elif case == "p_not_32":      # any P passes the checks
+        args = (_meta((40, 48)), _meta((30, 48)))
+    elif case == "p_zero":        # an empty reduction, done by the kernel
+        args = (_meta((40, 0)), _meta((30, 0)))
+    elif case == "p_too_big":     # past one 512-column pass
+        args = (_meta((40, 544)), _meta((30, 544)))
     elif case == "non_contiguous":
         args, match = (_meta((256, 40)).t(), b2), "contiguous"
     elif case == "mask_shape":

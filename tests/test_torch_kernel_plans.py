@@ -1,5 +1,5 @@
-"""The launch plans and argument checks of the redesigned Schur and remap
-kernels, on the CPU.
+"""The launch plans and argument checks of the redesigned Schur, remap and
+BRIEF kernels, on the CPU.
 
 The CUDA kernels themselves run only on a card (``tests/test_torch_cuda.py``);
 what decides their grids is plain Python and is held here: the Schur
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from photogrammetry_tpu_torch.kernels import remap, schur
+from photogrammetry_tpu_torch.kernels import brief_pack, remap, schur
 
 SCHUR_F = (1, 5, 12, 16, 17, 201)
 SCHUR_T = (0, 1, 31, 32, 33, 700, 701, 1024, 4096)
@@ -151,3 +151,81 @@ def test_remap_wrapper_takes_the_plain_version_on_the_cpu(dtype, b, ch):
     assert torch.equal(got, remap.remap_bilinear_plain(imgs, dmap))
     # the frames of a stack are remapped independently of their chunking
     assert torch.equal(got[:1], remap.remap_bilinear(imgs[:1], dmap))
+
+
+def _brief_meta():
+    return [torch.empty((2, 8, 9), device="meta"),
+            torch.empty((2, 5, 2), dtype=torch.int32, device="meta"),
+            torch.empty((7, 2, 2), dtype=torch.int32, device="meta"),
+            torch.empty((2, 5), dtype=torch.bool, device="meta"),
+            torch.empty((2, 5, 2), device="meta")]
+
+
+@pytest.mark.parametrize("case", ["dims", "coords_batch", "pairs_shape",
+                                  "mask_shape", "cos_sin_shape",
+                                  "two_devices", "dtype_images",
+                                  "dtype_mask", "dtype_cos_sin",
+                                  "non_contiguous", "device"])
+def test_brief_wrapper_refuses(case):
+    args, match = _brief_meta(), "unsupported device"
+    imgs, coords, pairs, mask, cs = args
+    if case == "dims":
+        args[0], match = imgs[None], "expected"
+    elif case == "coords_batch":
+        args[1], match = coords[:1], "expected"
+    elif case == "pairs_shape":
+        args[2], match = pairs[:, :1], "expected"
+    elif case == "mask_shape":
+        args[3], match = mask[:, :4], "mask"
+    elif case == "cos_sin_shape":
+        args[4], match = cs[..., :1], "cos_sin"
+    elif case == "two_devices":
+        args[3], match = torch.ones((2, 5), dtype=torch.bool), "devices"
+    elif case == "dtype_images":
+        args[0], match = imgs.to(torch.float64), "float32 images"
+    elif case == "dtype_mask":
+        args[3], match = mask.to(torch.uint8), "bool mask"
+    elif case == "dtype_cos_sin":
+        args[4], match = cs.to(torch.float16), "float32 cos_sin"
+    elif case == "non_contiguous":
+        args[0] = torch.empty((2, 9, 8), device="meta").transpose(1, 2)
+        match = "contiguous"
+    with pytest.raises(ValueError, match=match):
+        brief_pack.brief_bits(*args)
+
+
+def test_brief_wrapper_takes_the_plain_version_on_the_cpu():
+    rng = np.random.default_rng(3)
+    imgs = torch.tensor(rng.integers(0, 256, (3, 20, 30)),
+                        dtype=torch.float32)
+    coords = torch.tensor(rng.integers(-3, 33, (3, 11, 2)),
+                          dtype=torch.int32)
+    pairs = torch.tensor(rng.integers(-6, 7, (9, 2, 2)), dtype=torch.int32)
+    mask = torch.tensor(rng.random((3, 11)) > 0.3)
+    cs = torch.tensor(rng.normal(size=(3, 11, 2)), dtype=torch.float32)
+    before = brief_pack.brief_bits.launches
+    for extra in ((), (mask,), (mask, cs)):
+        got = brief_pack.brief_bits(imgs, coords, pairs, *extra)
+        assert got.shape == (3, 11, 9) and got.dtype == torch.uint8
+        assert torch.equal(got, brief_pack.brief_bits_plain(
+            imgs, coords, pairs, *extra))
+        # a frame alone is the batch of one
+        assert torch.equal(brief_pack.brief_bits(
+            imgs[1], coords[1], pairs, *(x[1] for x in extra)), got[1])
+    assert brief_pack.brief_bits.launches == before  # no kernel on the CPU
+    assert not got[~mask].any()
+    assert brief_pack.SOURCE.endswith("csrc/brief_pack.cu")
+    assert brief_pack.REPLACES.startswith(
+        "photogrammetry_tpu/kernels/brief_pack.py")
+
+
+@pytest.mark.parametrize("p", [1, 48, 256, 1024])
+@pytest.mark.parametrize("n", [1, 512, 2048])
+def test_brief_plan_covers_the_keypoints_and_fits_shared_memory(n, p):
+    blocks = brief_pack.blocks_per_frame(n)
+    kpb = brief_pack.KEYPOINTS_PER_BLOCK
+    assert blocks * kpb >= n > (blocks - 1) * kpb
+    assert kpb == brief_pack.THREADS // 32          # one keypoint a warp
+    assert brief_pack.smem_bytes(p) <= brief_pack.SMEM_LIMIT
+    # the pair table: four int arrays, P rounded up to a whole 16-byte word
+    assert brief_pack.smem_bytes(p) == 16 * (-(-p // 4) * 4)
