@@ -13,19 +13,24 @@ Layer map (bottom-up), as far as the port reaches:
               maps and the plain remap (dewarp), plumb-line lens
               calibration (calibrate)
   kernels/  — hand-written CUDA kernels for Hopper (csrc/*.cu: FAST, BRIEF,
-              Hamming, Schur, remap), each beside the plain PyTorch version
+              Hamming single and over a batch of frame pairs, Schur,
+              remap), each beside the plain PyTorch version
               it is held against; _build compiles and loads them
   sfm/      — frontend (single and batched), epipolar geometry, homography,
               triangulation, the two-view pipeline, tracks, PnP, Schur
-              bundle adjustment (ba), incremental SfM and its
-              best-of-restarts form, trajectory metrics
+              bundle adjustment (ba), incremental SfM (checkpointed and
+              resumable) and its best-of-restarts form, SE(3)/Sim(3) pose
+              graphs, loop closure, trajectory metrics
   store/    — content store with typed variants, the staged pipeline
-              runner over it, distortion-map and keypoint caches
+              runner over it, distortion-map and keypoint caches, SfM
+              checkpoints
   io/       — image files (Pillow, imported on use), overlay drawing, PLY
-  synth/    — synthetic ground-truth star camera-pan scenes (numpy)
+  synth/    — synthetic ground-truth star scenes: pan, orbit, dolly and
+              roll trajectories (numpy)
   utils/    — padding container, stage timer and stats log, JAX-semantics
               reductions
-  cli/      — run_sfm (with the dewarp stage), de_warp, pipeline_demo,
+  cli/      — run_sfm (with the dewarp stage, checkpoints and loop
+              closure), de_warp, pipeline_demo,
               calibrate_dewarp, sweep_sfm_seeds
   entry / convert — the two-view forward step; carrying the JAX package's
               pairs, configuration, state and distortion maps across

@@ -1,19 +1,23 @@
 """Run incremental SfM over an image sequence; export trajectory + cloud
-(port of photogrammetry_tpu/cli/run_sfm.py, default path).
+(port of photogrammetry_tpu/cli/run_sfm.py).
 
     python -m photogrammetry_tpu_torch.cli.run_sfm [FRAMES_DIR] \\
         [--synthetic-frames 8] [--restarts 3] [--device cuda] \\
         [--distortion-coeffs K1 K2 K3 K4 K5] [--dewarp-cache DIR] \\
-        [--oriented-brief]
+        [--oriented-brief] [--checkpoint PATH [--no-resume]] \\
+        [--loop-closure [--loop-mode revisit] [--loop-min-gap N] ...]
 
 A directory of frames (sorted), or the built-in synthetic star pan with
 exact ground truth for an ATE report → (with ``--distortion-coeffs``) the
 lens dewarp of every frame, ``dewarp_frames`` → ``run_incremental_sfm``
-(or its best-of-``--restarts`` form) → ``cloud.ply`` +
-``trajectory.json`` and one JSON report line; ``--oriented-brief`` steers
-the BRIEF pairs by each keypoint's orientation.  The JAX CLI's other modes
-(loop closure, submaps, keyframes, mesh, checkpoint, pyramid,
-precompute-matching) are not ported: their flags raise
+(or its best-of-``--restarts`` form; with ``--checkpoint`` a snapshotted
+run that resumes from the file) → (with ``--loop-closure``) place
+recognition over every frame pair, loop-edge measurement and the
+pose-graph correction, then the landmarks re-triangulated under the
+corrected poses → ``cloud.ply`` + ``trajectory.json`` and one JSON report
+line; ``--oriented-brief`` steers the BRIEF pairs by each keypoint's
+orientation.  The JAX CLI's other modes (submaps, keyframes, mesh,
+pyramid, precompute-matching) are not ported: their flags raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -23,12 +27,10 @@ import json
 
 from photogrammetry_tpu_torch.cli.common import load_gray
 
-NOT_PORTED = ("--loop-closure",
-              "--loop-min-gap", "--loop-min-matches", "--loop-max-edges",
-              "--loop-mode", "--submap-frames", "--submap-overlap",
+NOT_PORTED = ("--submap-frames", "--submap-overlap",
               "--submap-prior-weight", "--submap-refine", "--keyframe-disp",
-              "--mesh", "--checkpoint", "--no-resume", "--pyramid-octaves",
-              "--precompute-matching")
+              "--mesh", "--pyramid-octaves", "--precompute-matching")
+LOOP_SEED = 7   # the loop-edge measurement's draws (JAX: PRNGKey(7))
 
 
 def dewarp_frames(frames, coeffs, cache_dir: str, device="cuda",
@@ -55,6 +57,53 @@ def dewarp_frames(frames, coeffs, cache_dir: str, device="cuda",
     apply = make_distortion_applier(dmap, (h, w), device=dev, plain=plain)
     return apply(torch.as_tensor(frames).to(device=dev,
                                             dtype=torch.float32))
+
+
+def close_loops_stage(frames, res, k, cfg, args, device):
+    """The ``--loop-closure`` stage after the SfM run: the frames' features
+    (one batched frontend pass), ``close_loops`` on the run's trajectory,
+    then every landmark re-triangulated under the corrected poses with the
+    run's depth gate (a track whose re-triangulation fails in an observing
+    view leaves the map).  Updates ``res`` in place; returns the report's
+    ``loop_closure`` entry."""
+    import numpy as np
+    import torch
+
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        frame_features, make_pairs, precompute_frontend,
+    )
+    from photogrammetry_tpu_torch.sfm.incremental import _depth_ok
+    from photogrammetry_tpu_torch.sfm.loop_closure import close_loops
+    from photogrammetry_tpu_torch.sfm.triangulate import triangulate_nview
+
+    num = len(frames)
+    min_gap = (args.loop_min_gap if args.loop_min_gap is not None
+               else max(5, num // 4))
+    stacked = precompute_frontend(
+        torch.as_tensor(np.asarray(frames) if not isinstance(
+            frames, torch.Tensor) else frames, dtype=torch.float32,
+            device=device), make_pairs(cfg.frontend, device=device),
+        cfg.frontend, chunk=cfg.frontend_chunk)
+    feats = [frame_features(stacked, t) for t in range(num)]
+    kmat = torch.as_tensor(np.asarray(k), dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(LOOP_SEED)
+    rs_lc, ts_lc, info = close_loops(
+        feats, torch.as_tensor(res.rs, device=device),
+        torch.as_tensor(res.ts, device=device), kmat, cfg.frontend,
+        generator=gen, min_gap=min_gap, min_matches=args.loop_min_matches,
+        mode=args.loop_mode, max_candidates=args.loop_max_edges)
+    rs_lc = torch.as_tensor(rs_lc, dtype=torch.float32, device=device)
+    ts_lc = torch.as_tensor(ts_lc, dtype=torch.float32, device=device)
+    table = res.table
+    pts, depths = triangulate_nview(table.obs, table.obs_mask, rs_lc, ts_lc,
+                                    kmat)
+    has = table.has_point & _depth_ok(table.obs_mask, depths, cfg.min_depth,
+                                      cfg.max_depth)
+    res.table = table._replace(
+        points=torch.where(has[:, None], pts, table.points), has_point=has)
+    res.rs, res.ts = rs_lc.cpu().numpy(), ts_lc.cpu().numpy()
+    return {"loop_edges": [list(p) for p in info["loop_edges"]],
+            "rejected_edges": len(info.get("rejected_edges", []))}
 
 
 def main(argv=None) -> int:
@@ -93,6 +142,31 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch path)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="snapshot path; reruns resume from the last "
+                         "snapshot (store/checkpoint.py)")
+    ap.add_argument("--no-resume", action="store_true",
+                    help="ignore an existing checkpoint and start fresh")
+    ap.add_argument("--loop-closure", action="store_true",
+                    help="detect loop closures (place recognition over "
+                         "every frame pair) and optimize the pose graph "
+                         "after SfM")
+    ap.add_argument("--loop-min-gap", type=int, default=None,
+                    help="minimum frame separation for a loop candidate; "
+                         "default max(5, F//4)")
+    ap.add_argument("--loop-min-matches", type=int, default=30)
+    ap.add_argument("--loop-max-edges", type=int, default=8,
+                    help="max accepted loop edges")
+    ap.add_argument("--loop-mode", default="rotation",
+                    choices=("rotation", "essential", "revisit",
+                             "revisit_sim3"),
+                    help="loop-edge measurement: 'rotation' constrains "
+                         "orientation only; 'essential' a full relative "
+                         "pose at the current baseline; 'revisit' a "
+                         "zero-baseline edge that pins revisit centers "
+                         "together; 'revisit_sim3' also measures the "
+                         "relative scale at each revisit and optimizes a "
+                         "Sim(3) pose graph")
     args, rest = ap.parse_known_args(argv)
     for arg in rest:
         if arg.split("=")[0] in NOT_PORTED:
@@ -101,6 +175,9 @@ def main(argv=None) -> int:
                 f"photogrammetry_tpu.cli.run_sfm")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.restarts > 1 and args.checkpoint:
+        ap.error("--restarts and --checkpoint conflict: restart selection "
+                 "re-runs from scratch and cannot resume a snapshot")
 
     import numpy as np
     import torch
@@ -164,7 +241,14 @@ def main(argv=None) -> int:
                                              restarts=args.restarts,
                                              device=device)
         else:
-            res = run_incremental_sfm(frames, k, cfg, device=device)
+            res = run_incremental_sfm(frames, k, cfg, device=device,
+                                      checkpoint_path=args.checkpoint,
+                                      resume=not args.no_resume)
+    loop_report = None
+    if args.loop_closure:
+        with timer.stage("loop_closure"):
+            loop_report = close_loops_stage(frames, res, k, cfg, args,
+                                            device)
 
     write_ply(args.cloud, res.points)
     centers = res.camera_centers
@@ -176,6 +260,8 @@ def main(argv=None) -> int:
               "timings": timer.summary(),
               "quality": {"support": support,
                           "median_reproj_px": round(med, 3)}}
+    if loop_report is not None:
+        report["loop_closure"] = loop_report
     if gt_centers is not None:
         report["ate"] = float(absolute_trajectory_error(
             torch.tensor(centers, dtype=torch.float64),

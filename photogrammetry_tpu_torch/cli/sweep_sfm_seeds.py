@@ -7,17 +7,23 @@ are noisy; accuracy is judged on the across-seed distribution.  Usage:
     python -m photogrammetry_tpu_torch.cli.sweep_sfm_seeds \\
         [--frames 8] [--seeds 20] [--size 480 640] [--focal 520] \\
         [--restarts 1] [--device cuda] [--plain] \\
-        [--distortion-coeffs K1 K2 K3 K4 K5]
+        [--distortion-coeffs K1 K2 K3 K4 K5] \\
+        [--out-and-back] [--loop-mode revisit]
 
 With ``--distortion-coeffs`` the rendered frames are first barrel-distorted
 with the synthetic map (what a camera with that lens would capture) and
 then go through ``run_sfm``'s dewarp stage, so the sweep is over the
 dewarp + SfM path.  ``--plain`` runs the kernels' plain versions.
+``--out-and-back`` traverses the pan out and back (2F - 1 frames, frame j
+the same as frame 2F - 2 - j: every frame revisited), and ``--loop-mode``
+runs ``close_loops`` in that mode after each run (``run_sfm
+--loop-closure``'s minimum gap max(5, F // 4) and draws seeded 7) and
+reports the ATE after it beside the ATE before.
 
 Prints one JSON line per seed (ATE, landmarks, support, median
 reprojection error) and a summary line: mean / p90 / max ATE and the share
 of seeds within the bounds of tests/test_incremental.py (ATE < 0.2,
-> 80 landmarks).
+> 80 landmarks), after loop closure too where it ran.
 """
 from __future__ import annotations
 
@@ -43,6 +49,12 @@ def main(argv=None) -> int:
                     metavar=("K1", "K2", "K3", "K4", "K5"),
                     help="distort the frames with this lens model, then "
                          "dewarp them in front of the SfM run")
+    ap.add_argument("--out-and-back", action="store_true",
+                    help="traverse the pan out and back (2F - 1 frames)")
+    ap.add_argument("--loop-mode", default=None,
+                    choices=("rotation", "essential", "revisit",
+                             "revisit_sim3"),
+                    help="close loops in this mode after each run")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -51,9 +63,7 @@ def main(argv=None) -> int:
     from photogrammetry_tpu_torch.sfm.incremental import (
         SfmConfig, reconstruction_quality, run_incremental_sfm_robust,
     )
-    from photogrammetry_tpu_torch.sfm.metrics import (
-        absolute_trajectory_error,
-    )
+    from photogrammetry_tpu_torch.sfm.metrics import trajectory_ate
     from photogrammetry_tpu_torch.synth.star_scene import (
         StarSceneConfig, generate_sequence,
     )
@@ -61,7 +71,10 @@ def main(argv=None) -> int:
     scene = generate_sequence(StarSceneConfig(
         num_frames=args.frames, image_size=tuple(args.size),
         focal=args.focal, supersample=args.supersample))
-    frames = scene["frames"]
+    frames, centers = scene["frames"], scene["centers"]
+    if args.out_and_back:
+        frames = np.concatenate([frames, frames[-2::-1]])
+        centers = np.concatenate([centers, centers[-2::-1]])
     if args.distortion_coeffs is not None:
         import tempfile
 
@@ -79,6 +92,19 @@ def main(argv=None) -> int:
                                    args.distortion_coeffs, cache_dir,
                                    args.device, plain=args.plain)
     cfg = SfmConfig(collect_diagnostics=False)
+
+    feats = None
+    if args.loop_mode is not None:
+        from photogrammetry_tpu_torch.sfm.frontend import (
+            frame_features, make_pairs, precompute_frontend,
+        )
+
+        stacked = precompute_frontend(
+            torch.as_tensor(np.asarray(frames), dtype=torch.float32,
+                            device=args.device),
+            make_pairs(cfg.frontend, device=args.device), cfg.frontend,
+            chunk=cfg.frontend_chunk, plain=args.plain)
+        feats = [frame_features(stacked, t) for t in range(len(frames))]
     rows = []
     for seed in range(args.seeds):
         res = run_incremental_sfm_robust(frames, scene["k"], cfg,
@@ -86,14 +112,39 @@ def main(argv=None) -> int:
                                          device=args.device,
                                          plain=args.plain)
         support, med = reconstruction_quality(res, scene["k"])
-        rows.append(dict(seed=seed, ate=float(absolute_trajectory_error(
-            torch.tensor(res.camera_centers, dtype=torch.float64),
-            torch.tensor(scene["centers"], dtype=torch.float64))),
-            landmarks=len(res.points), support=support, median_px=med))
+        rows.append(dict(seed=seed,
+                         ate=trajectory_ate(res.rs, res.ts, centers),
+                         landmarks=len(res.points), support=support,
+                         median_px=med))
+        if feats is not None:
+            from photogrammetry_tpu_torch.cli.run_sfm import LOOP_SEED
+            from photogrammetry_tpu_torch.sfm.loop_closure import (
+                close_loops,
+            )
+
+            gen = torch.Generator(device=args.device)
+            gen.manual_seed(LOOP_SEED)
+            rs, ts, info = close_loops(
+                feats, torch.as_tensor(res.rs, device=args.device),
+                torch.as_tensor(res.ts, device=args.device),
+                torch.as_tensor(scene["k"], device=args.device),
+                cfg.frontend, generator=gen,
+                min_gap=max(5, len(frames) // 4),
+                mode=args.loop_mode, plain=args.plain)
+            rows[-1].update(ate_loop=trajectory_ate(rs, ts, centers),
+                            loop_edges=[list(e) for e in info["loop_edges"]])
         print(json.dumps(rows[-1]), flush=True)
     ates = np.array([r["ate"] for r in rows])
+    if feats is not None:
+        loop_ates = np.array([r["ate_loop"] for r in rows])
+        print(json.dumps({
+            "loop_mode": args.loop_mode, "mean_loop": float(loop_ates.mean()),
+            "max_loop": float(loop_ates.max()),
+            "within_bounds_loop": float(np.mean(
+                [r["ate_loop"] < 0.2 and r["landmarks"] > 80
+                 for r in rows]))}))
     print(json.dumps({
-        "frames": args.frames, "size": list(args.size), "focal": args.focal,
+        "frames": len(frames), "size": list(args.size), "focal": args.focal,
         "seeds": args.seeds, "restarts": args.restarts,
         "device": args.device, "plain": args.plain,
         "distortion_coeffs": args.distortion_coeffs,

@@ -6,7 +6,8 @@ state is the track table and the BA state of a reconstruction.
 ``from_jax`` takes the first as plain numpy arrays and a dict
 (``np.asarray(make_pairs(cfg))``, ``dataclasses.asdict(cfg)``);
 ``state_from_jax`` takes a JAX ``TrackTable`` / ``BAState`` /
-``BAProblem`` and reads its leaves with ``np.asarray``.  The dewarp slice
+``BAProblem`` / ``PoseGraph`` / ``PoseGraphSim3`` and reads its leaves
+with ``np.asarray``.  The dewarp slice
 has no trained state either: what it carries across is the distortion map
 (``distortion_map_from_jax``) and the (5,) coefficient vector, a plain list
 of floats.  So this module needs no JAX.
@@ -22,6 +23,7 @@ from photogrammetry_tpu_torch import resolve_device
 from photogrammetry_tpu_torch.sfm.ba import BAProblem, BAState
 from photogrammetry_tpu_torch.sfm.frontend import FrontendConfig
 from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
+from photogrammetry_tpu_torch.sfm.pose_graph import PoseGraph, PoseGraphSim3
 from photogrammetry_tpu_torch.sfm.tracks import TrackTable
 
 JAX_ONLY_KEYS = ("use_pallas_matching", "use_pallas_detect")
@@ -29,7 +31,8 @@ JAX_ONLY_KEYS = ("use_pallas_matching", "use_pallas_detect")
 JAX_ONLY_SFM = {"mesh": (None,), "fused_steady_steps": (None, False),
                 "read_free": (False,), "precompute_matching": (False,),
                 "pyramid_octaves": (1,)}
-STATE_TYPES = {cls.__name__: cls for cls in (TrackTable, BAState, BAProblem)}
+STATE_TYPES = {cls.__name__: cls for cls in (TrackTable, BAState, BAProblem,
+                                              PoseGraph, PoseGraphSim3)}
 
 
 def _config(cls, d: dict):
@@ -74,13 +77,13 @@ def from_jax(pairs: np.ndarray, k: np.ndarray, config: dict, device="cuda"):
 
 
 def state_from_jax(state, device="cuda"):
-    """A JAX ``TrackTable``, ``BAState`` or ``BAProblem`` → the port's
-    NamedTuple of the same name, every leaf a tensor on ``device`` with
-    the same dtype."""
+    """A JAX ``TrackTable``, ``BAState``, ``BAProblem``, ``PoseGraph`` or
+    ``PoseGraphSim3`` → the port's NamedTuple of the same name, every leaf
+    a tensor on ``device`` with the same dtype."""
     cls = STATE_TYPES.get(type(state).__name__)
     if cls is None or tuple(state._fields) != cls._fields:
-        raise TypeError(f"state_from_jax: not a JAX TrackTable, BAState or "
-                        f"BAProblem: {type(state).__name__}")
+        raise TypeError(f"state_from_jax: not a JAX "
+                        f"{', '.join(STATE_TYPES)}: {type(state).__name__}")
     dev = resolve_device(device)
     return cls(*(torch.from_numpy(np.array(x)).to(dev) for x in state))
 

@@ -14,6 +14,11 @@ bytes (the (N1, N2) int32 output).  The tile of a block is planned here
 too.  The plain PyTorch version is ``hamming_distance_matrix_plain``
 (ops/match.py), which the wrapper runs for tensors on the CPU and never
 for CUDA tensors.
+
+``hamming_distance_matrix_pairs`` is the batched entry of the same kernel:
+stacked (F, K, P) bits and (F, K) masks, and Q frame pairs (ii, jj) in one
+launch (the pair in ``blockIdx.z``), for loop closure's pair grid; its
+plain version is ``ops/match.py``'s function of the same name.
 """
 from __future__ import annotations
 
@@ -26,11 +31,14 @@ import torch
 from photogrammetry_tpu_torch.kernels import _build
 from photogrammetry_tpu_torch.ops.match import \
     hamming_distance_matrix as hamming_distance_matrix_plain
+from photogrammetry_tpu_torch.ops.match import \
+    hamming_distance_matrix_pairs as hamming_distance_matrix_pairs_plain
 
 SOURCE = "photogrammetry_tpu_torch/csrc/hamming.cu"
 REPLACES = "photogrammetry_tpu/kernels/hamming.py:45"
 CHUNK_BITS = 512  # columns staged a pass (CHUNK_BITS in csrc/hamming.cu)
 SM_COUNT = 132  # H100 SXM
+MAX_PAIRS = 65535  # pairs a launch: the grid's z extent
 # (block rows, block columns, warp rows, warp columns): the tiles the
 # kernel is compiled for, largest first (the TILE lines of csrc/hamming.cu)
 TILES = ((128, 128, 64, 32), (64, 128, 32, 32), (64, 64, 32, 32),
@@ -49,13 +57,14 @@ class TilePlan(NamedTuple):
     grid_y: int
 
 
-def tile_plan(n1: int, n2: int) -> TilePlan:
-    """The largest tile whose grid still gives every SM a block (128 x 128
-    at 2048 x 2048: 256 blocks), else the smallest (32 x 32 at 512 x 512:
-    256 blocks, where 128 x 128 would leave 116 SMs idle)."""
+def tile_plan(n1: int, n2: int, batch: int = 1) -> TilePlan:
+    """The largest tile whose grid, over ``batch`` matrices, still gives
+    every SM a block (128 x 128 at 2048 x 2048: 256 blocks; at 512 x 512
+    from 9 matrices on), else the smallest (32 x 32 at one 512 x 512: 256
+    blocks, where 128 x 128 would leave 116 SMs idle)."""
     for tile in TILES:
         gx, gy = -(-n2 // tile[1]), -(-n1 // tile[0])
-        if gx * gy >= SM_COUNT:
+        if gx * gy * batch >= SM_COUNT:
             break
     return TilePlan(*tile, gx, gy)
 
@@ -66,6 +75,16 @@ def _launcher():
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_void_p]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _pairs_launcher():
+    fn = _build.load("hamming").hamming_pairs_launch
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -128,3 +147,52 @@ def hamming_distance_matrix(bits1: torch.Tensor, bits2: torch.Tensor,
 
 
 hamming_distance_matrix.launches = 0
+
+
+def hamming_distance_matrix_pairs(bits: torch.Tensor, masks: torch.Tensor,
+                                  ii: torch.Tensor, jj: torch.Tensor
+                                  ) -> torch.Tensor:
+    """(F, K, P) {0,1} uint8 bits, (F, K) bool masks and (Q,) frame indices
+    → (Q, K, K) int32, pair q the distances of frame ii[q]'s keypoints
+    (rows) to frame jj[q]'s (masked rows/cols INT_INF), any P, one launch
+    for up to MAX_PAIRS pairs.  On CUDA the indices are int32 tensors on
+    the bits' device; a pair whose index lies outside [0, F) comes out
+    INT_INF throughout (the plain version raises there)."""
+    if bits.dim() != 3 or masks.shape != bits.shape[:2] \
+            or ii.dim() != 1 or ii.shape != jj.shape:
+        raise ValueError(f"hamming pairs: bits {tuple(bits.shape)}, masks "
+                         f"{tuple(masks.shape)}, indices {tuple(ii.shape)} "
+                         f"and {tuple(jj.shape)} do not pair")
+    dev = bits.device
+    if any(x.device != dev for x in (masks, ii, jj)):
+        raise ValueError("hamming pairs: tensors on two devices")
+    if dev.type == "cpu":
+        return hamming_distance_matrix_pairs_plain(bits, masks, ii, jj)
+    if bits.dtype != torch.uint8 or not bits.is_contiguous():
+        raise ValueError("hamming pairs: needs contiguous uint8 bits")
+    if masks.dtype != torch.bool or not masks.is_contiguous():
+        raise ValueError("hamming pairs: needs contiguous bool masks")
+    if any(x.dtype != torch.int32 or not x.is_contiguous()
+           for x in (ii, jj)):
+        raise ValueError("hamming pairs: needs contiguous int32 indices")
+    f, k, p = bits.shape
+    q = ii.shape[0]
+    if q > MAX_PAIRS:
+        raise ValueError(f"hamming pairs: {q} pairs, at most {MAX_PAIRS} "
+                         f"a launch")
+    if dev.type != "cuda":
+        raise ValueError(f"hamming pairs: unsupported device {dev}")
+    out = torch.empty((q, k, k), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    plan = tile_plan(k, k, q)
+    err = _pairs_launcher()(bits.data_ptr(), f, k, p, masks.data_ptr(),
+                            ii.data_ptr(), jj.data_ptr(), q, out.data_ptr(),
+                            plan.bm, plan.bn, plan.wm, plan.wn,
+                            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "hamming_pairs_launch")
+    hamming_distance_matrix_pairs.launches += 1
+    return out
+
+
+hamming_distance_matrix_pairs.launches = 0

@@ -40,8 +40,16 @@ def normalization_transform(xy: torch.Tensor,
 
 
 def smallest_eigvec(a: torch.Tensor) -> torch.Tensor:
-    """Eigenvector of the smallest eigenvalue of symmetric (…, D, D)."""
-    return torch.linalg.eigh(a).eigenvectors[..., :, 0]
+    """Eigenvector of the smallest eigenvalue of symmetric (…, D, D).
+
+    A matrix with a non-finite entry gives NaN, as ``jnp.linalg.eigh``
+    does, where ``torch.linalg.eigh`` raises for the whole batch (a NaN
+    landmark weighted by 0 still puts NaN into a PnP refit's Gram matrix,
+    whose NaN pose the caller then rejects)."""
+    ok = torch.isfinite(a).all(-1).all(-1)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    v = torch.linalg.eigh(torch.where(ok[..., None, None], a, eye))
+    return torch.where(ok[..., None], v.eigenvectors[..., :, 0], torch.nan)
 
 
 def eight_point_fundamental(xy1: torch.Tensor, xy2: torch.Tensor,

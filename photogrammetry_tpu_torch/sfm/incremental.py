@@ -13,8 +13,9 @@ sequential-draw loop of photogrammetry_tpu/sfm/incremental.py).
 
 Every stage is tensor code on the frames' device; the only host reads
 before the final export are the bootstrap trigger's median displacement
-(one per deferred frame, as in the JAX package) and, with
-``collect_diagnostics``, the per-frame counters.  Where the JAX package
+(one per deferred frame, as in the JAX package), with
+``collect_diagnostics`` the per-frame counters, and with a checkpoint the
+snapshot itself (state and cost).  Where the JAX package
 branches on device data (``lax.cond`` in the PnP stages) the port computes
 the branch and selects with ``torch.where``; so it draws the PnP samples
 on every steady frame, where JAX splits its key only when the rescue runs.
@@ -22,14 +23,20 @@ All randomness comes from one ``torch.Generator`` on the device seeded
 with ``seed``, drawn in JAX's order: the gate, the skip gate, the
 bootstrap attempts, then PnP.
 
+With ``checkpoint_path`` the state (poses, landmarks, track table)
+snapshots every ``checkpoint_every`` frames and at the last frame
+(``store/checkpoint.py``, the JAX package's file format), deferred frames
+included, and a rerun resumes after the snapshot's frame.
+
 Left out of the port (the JAX package's workarounds for TPU dispatch
-cost, and its distributed and checkpointed modes): ``precompute_matching``,
+cost, and its distributed mode): ``precompute_matching``,
 ``fused_steady_steps`` / ``run_incremental_sfm_fused``, ``read_free``,
-``export=False`` / ``DeviceSfmResult``, ``mesh``, checkpointing and
+``export=False`` / ``DeviceSfmResult``, ``mesh`` and
 ``pyramid_octaves > 1``.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -56,6 +63,9 @@ from photogrammetry_tpu_torch.sfm.tracks import (
 )
 from photogrammetry_tpu_torch.sfm.triangulate import triangulate_nview
 from photogrammetry_tpu_torch.sfm.two_view import two_view_pipeline
+from photogrammetry_tpu_torch.store.checkpoint import (
+    load_checkpoint, save_checkpoint,
+)
 from photogrammetry_tpu_torch.utils.reductions import nanmedian
 
 
@@ -338,8 +348,45 @@ def _gate(generator, m, config: SfmConfig):
                                        config.ransac_threshold).inliers
 
 
+def _fit_frames(rs, ts, table: TrackTable, num_frames: int):
+    """A resumed state over ``num_frames`` frames: a checkpoint of a shorter
+    run gets identity poses and empty observation rows for the frames it
+    has not seen (what the longer run holds there at the snapshot's
+    frame)."""
+    have = rs.shape[0]
+    if have > num_frames:
+        raise ValueError(f"checkpoint holds {have} frames, the sequence "
+                         f"{num_frames}")
+    if have == num_frames:
+        return rs, ts, table
+    more = num_frames - have
+    dev = rs.device
+    return (torch.cat([rs, torch.eye(3, dtype=rs.dtype, device=dev)
+                       .repeat(more, 1, 1)]),
+            torch.cat([ts, ts.new_zeros((more, 3))]),
+            table._replace(
+                obs=torch.cat([table.obs, table.obs.new_zeros(
+                    (more, *table.obs.shape[1:]))]),
+                obs_mask=torch.cat([table.obs_mask, table.obs_mask.new_zeros(
+                    (more, table.obs_mask.shape[1]))])))
+
+
+def _resume_kp_track(table: TrackTable, prev, done: int) -> TrackTable:
+    """The resumed frame's keypoint -> track map, rebuilt by matching its
+    keypoints to the stored observation row (nearest within 0.5 px)."""
+    d = torch.linalg.vector_norm(prev.xy[:, None, :]
+                                 - table.obs[done][None], dim=-1)
+    d = torch.where(table.obs_mask[done][None, :], d, 1e9)
+    nearest = torch.argmin(d, dim=1)
+    ok = (torch.gather(d, 1, nearest[:, None])[:, 0] < 0.5) \
+        & prev.points.mask
+    return table._replace(
+        kp_track=torch.where(ok, nearest, -1).to(torch.int32))
+
+
 def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
                         seed: int = 0, checkpoint_path: str | None = None,
+                        checkpoint_every: int = 4, resume: bool = True,
                         export: bool = True, *, device="cuda",
                         plain: bool = False) -> SfmResult:
     """frames: (F, H, W) grayscale, a numpy array or a tensor on any device
@@ -348,10 +395,12 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
     Runs on ``device`` (default CUDA; raises without a card unless
     ``device='cpu'``).  ``plain=True`` runs the kernels' plain versions
     (FAST, BRIEF, Hamming, Schur) instead of the kernels, the reference
-    run on the card.  Checkpointing and ``export=False`` are not ported.
+    run on the card.  With ``checkpoint_path`` the state snapshots every
+    ``checkpoint_every`` frames and at the last one, and (``resume``) a run
+    whose checkpoint exists resumes after its frame; a checkpoint of a
+    shorter run is extended to this sequence.  ``export=False`` is not
+    ported.
     """
-    if checkpoint_path is not None:
-        raise NotImplementedError("checkpointing is not ported yet")
     if not export:
         raise NotImplementedError("export=False (DeviceSfmResult) is not "
                                   "ported")
@@ -376,11 +425,30 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
     ts = torch.zeros((num_frames, 3), device=dev)
     costs = []
     frame_info = []
+    start_frame = 1
     feats = precompute_frontend(frames_t, pairs, fc,
                                 chunk=config.frontend_chunk, plain=plain)
-    prev = frame_features(feats, 0)
-    table = start_tracks(table, 0, prev.xy, prev.points.mask)
-    map_ready = False
+    if checkpoint_path and resume and os.path.isfile(checkpoint_path):
+        rs, ts, table, done, _ = load_checkpoint(checkpoint_path, device=dev)
+        rs, ts, table = _fit_frames(rs, ts, table, num_frames)
+        if done + 1 >= num_frames:
+            return SfmResult(rs.cpu().numpy(), ts.cpu().numpy(), table,
+                             costs, frame_info)
+        start_frame = done + 1
+        prev = frame_features(feats, done)
+        table = _resume_kp_track(table, prev, done)
+        map_ready = bool(table.has_point.any())
+    else:
+        prev = frame_features(feats, 0)
+        table = start_tracks(table, 0, prev.xy, prev.points.mask)
+        map_ready = False
+
+    def snapshot(t, table, rs, ts, cost):
+        if checkpoint_path and (t % checkpoint_every == 0
+                                or t == num_frames - 1):
+            save_checkpoint(checkpoint_path, rs, ts, table, t, metadata={
+                "frame": t, "cost": None if cost is None else float(cost)})
+
     prev2 = None            # features of frame t-2
     kp_track_prev2 = None   # frame t-2 keypoint -> track id snapshot
     pending_support = None  # device scalar, read at export
@@ -394,7 +462,7 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
         return res.state.rs, res.state.ts, \
             table._replace(points=res.state.points)
 
-    for t in range(1, num_frames):
+    for t in range(start_frame, num_frames):
         cur = frame_features(feats, t)
         m = match_pair(cur, prev, fc, plain=plain)  # rows = current kps
         # only RANSAC-inlier matches may chain tracks
@@ -439,6 +507,9 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
                 frame_info.append(info)
                 prev2, kp_track_prev2 = prev, kp_track_prev
                 prev = cur
+                # deferred frames keep the cadence too: a crash in the
+                # poseless phase resumes mid-deferral
+                snapshot(t, table, rs, ts, None)
                 continue
         else:
             # pose init: the previous pose, rescued by RANSAC PnP against
@@ -503,6 +574,7 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
         frame_info.append(info)
         prev2, kp_track_prev2 = prev, kp_track_prev
         prev = cur
+        snapshot(t, table, rs, ts, costs[-1])
 
     if config.final_ba_iterations > 0 and num_frames >= 2:
         fixed = torch.ones((num_frames,), device=dev)

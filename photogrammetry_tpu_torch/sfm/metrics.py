@@ -37,3 +37,14 @@ def absolute_trajectory_error(est: torch.Tensor, gt: torch.Tensor,
     s, r, t = align_umeyama(est, gt, with_scale)
     aligned = est @ (s * r).T + t
     return torch.sqrt(((aligned - gt) ** 2).sum(-1).mean())
+
+
+def trajectory_ate(rs, ts, gt_centers) -> float:
+    """ATE, in float64 on the CPU, of the camera centres -R^T t of (F, 3, 3)
+    rotations and (F, 3) translations (arrays, lists or tensors on any
+    device) against (F, 3) ground-truth centres."""
+    def f64(x):
+        return torch.as_tensor(x).detach().cpu().to(torch.float64)
+
+    c = -torch.einsum("fji,fj->fi", f64(rs), f64(ts))
+    return float(absolute_trajectory_error(c, f64(gt_centers)))

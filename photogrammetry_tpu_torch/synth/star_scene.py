@@ -1,6 +1,7 @@
 """Synthetic 15-point-star camera-pan scene with exact ground truth (the
-port's own copy of photogrammetry_tpu/synth/star_scene.py's pan scene, so
-that the port renders test frames without importing the JAX package).
+port's own copy of photogrammetry_tpu/synth/star_scene.py's pan, orbit,
+dolly and roll scenes, so that the port renders test frames without
+importing the JAX package).
 
 The reference ships a Blender project (blender/15pt_star_camera_pan/
 project.blend) but no rendered frames or exported poses (SURVEY.md §4); this
@@ -103,6 +104,84 @@ def pan_trajectory(cfg: StarSceneConfig):
         ts.append(t)
         centers.append(center)
     return np.stack(rs), np.stack(ts), np.stack(centers)
+
+
+def _yaw(th: float) -> np.ndarray:
+    c, s = np.cos(th), np.sin(th)
+    return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]], np.float64)
+
+
+def orbit_trajectory(cfg: StarSceneConfig, total_angle: float = 1.2):
+    """Ground-truth poses orbiting the star center at constant range.
+
+    The linear pan's per-frame baseline shrinks as 1/num_frames, so
+    long-sequence scenarios use an orbit instead: the camera circles the
+    star pivot at range ``depth``, sweeping ``total_angle`` radians, which
+    keeps per-frame parallax constant for any frame count.  Returns (rs,
+    ts, centers).
+    """
+    pivot = np.array([0.0, 0.0, cfg.depth])
+    rs, ts, centers = [], [], []
+    for i in range(cfg.num_frames):
+        r = _yaw((i / max(cfg.num_frames - 1, 1) - 0.5) * total_angle)
+        center = pivot - r.T @ np.array([0.0, 0.0, cfg.depth])
+        rs.append(r)
+        ts.append(-r @ center)
+        centers.append(center)
+    return np.stack(rs), np.stack(ts), np.stack(centers)
+
+
+def dolly_trajectory(cfg: StarSceneConfig, z_travel: float,
+                     lateral: float = 0.3):
+    """Forward dolly toward the star (plus a small lateral slide so the
+    two-view bootstrap is not a pure-forward degenerate motion): apparent
+    feature scale grows by depth/(depth - z_travel) over the sequence."""
+    rs, ts, centers = [], [], []
+    for i in range(cfg.num_frames):
+        a = i / max(cfg.num_frames - 1, 1)
+        center = np.array([lateral * a, 0.0, z_travel * a])
+        r = np.eye(3)
+        rs.append(r)
+        ts.append(-r @ center)
+        centers.append(center)
+    return np.stack(rs), np.stack(ts), np.stack(centers)
+
+
+def roll_trajectory(cfg: StarSceneConfig, total_roll: float,
+                    lateral: float = 0.6):
+    """Lateral pan with in-plane camera roll accumulating to ``total_roll``
+    radians (an unoriented descriptor dies beyond ~20 deg of roll)."""
+    rs, ts, centers = [], [], []
+    for i in range(cfg.num_frames):
+        a = i / max(cfg.num_frames - 1, 1)
+        phi = total_roll * a
+        cphi, sphi = np.cos(phi), np.sin(phi)
+        r = np.array([[cphi, -sphi, 0.0],
+                      [sphi, cphi, 0.0],
+                      [0.0, 0.0, 1.0]], np.float64)
+        center = np.array([lateral * (a - 0.5) * 2.0, 0.0, 0.0])
+        rs.append(r)
+        ts.append(-r @ center)
+        centers.append(center)
+    return np.stack(rs), np.stack(ts), np.stack(centers)
+
+
+def generate_custom_sequence(cfg: StarSceneConfig, rs, ts, centers):
+    """Render a sequence for externally built ground-truth poses."""
+    dots, _ = dot_points_3d(cfg)
+    pts = np.concatenate([star_points_3d(cfg), dots])
+    k = intrinsics(cfg)
+    frames = np.stack([render_frame(cfg, rs[i], ts[i], k)
+                       for i in range(cfg.num_frames)])
+    return dict(frames=frames, k=k, rs=rs, ts=ts, centers=centers,
+                points=pts, config=cfg)
+
+
+def generate_orbit_sequence(cfg: StarSceneConfig | None = None,
+                            total_angle: float = 1.2):
+    """Like generate_sequence but on the orbit trajectory."""
+    cfg = cfg or StarSceneConfig()
+    return generate_custom_sequence(cfg, *orbit_trajectory(cfg, total_angle))
 
 
 def intrinsics(cfg: StarSceneConfig) -> np.ndarray:

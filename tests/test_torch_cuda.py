@@ -215,6 +215,140 @@ def test_hamming_kernel_offset_operands_and_side_stream(dev):
     assert torch.equal(got, ref) and torch.equal(on_side, ref)
 
 
+def _pairs_inputs(dev, f, k, p, q, seed):
+    """Stacked bits, ragged masks (one frame all masked) and q pairs that
+    repeat frames and pair frames with themselves."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bits = torch.randint(0, 2, (f, k, p), generator=gen,
+                         device=dev).to(torch.uint8)
+    masks = torch.rand((f, k), generator=gen, device=dev) > 0.2
+    masks[f - 1] = False
+    ii = torch.randint(0, f, (q,), generator=gen, device=dev)
+    jj = torch.randint(0, f, (q,), generator=gen, device=dev)
+    jj[: q // 3] = ii[: q // 3]                       # ii == jj
+    return bits, masks, ii.to(torch.int32), jj.to(torch.int32)
+
+
+# Q of 1, 7 and 529 (F = 23's grid); K of 1, 17, 512 and 513; P of 48
+# (byte staging, a zero-filled tail), 256 (one pass) and 1024 (two passes)
+@pytest.mark.parametrize("p", [48, 256, 1024])
+@pytest.mark.parametrize("k", [1, 17, 512, 513])
+@pytest.mark.parametrize("q", [1, 7, 529])
+def test_hamming_pairs_kernel_exact(dev, q, k, p):
+    if q * k * k * p > 529 * 512 * 512 * 256:
+        q = 64                      # the largest sizes at 64 pairs
+    bits, masks, ii, jj = _pairs_inputs(dev, 23, k, p, q, seed=q + k + p)
+    before = hamming.hamming_distance_matrix_pairs.launches
+    got = hamming.hamming_distance_matrix_pairs(bits, masks, ii, jj)
+    torch.cuda.synchronize()
+    assert hamming.hamming_distance_matrix_pairs.launches == before + 1
+    assert torch.equal(got, hamming.hamming_distance_matrix_pairs_plain(
+        bits, masks, ii, jj))
+
+
+def test_hamming_pairs_kernel_index_outside_the_frames(dev):
+    bits, masks, ii, jj = _pairs_inputs(dev, 5, 40, 256, 6, seed=3)
+    ii[2], jj[4] = 5, -1
+    got = hamming.hamming_distance_matrix_pairs(bits, masks, ii, jj)
+    torch.cuda.synchronize()
+    assert (got[2] == 2 ** 31 - 1).all() and (got[4] == 2 ** 31 - 1).all()
+    keep = torch.tensor([0, 1, 3, 5], device=dev)
+    assert torch.equal(got[keep], hamming.hamming_distance_matrix_pairs_plain(
+        bits, masks, ii[keep], jj[keep]))
+
+
+def test_pairwise_match_counts_chunked_on_the_card(dev, monkeypatch):
+    """F = 23 frames of 512 keypoints in chunks of 100 pairs: six launches,
+    the counts equal the plain path's."""
+    from photogrammetry_tpu_torch.sfm import loop_closure
+
+    bits, masks, _, _ = _pairs_inputs(dev, 23, 512, 256, 1, seed=9)
+    bits[12:] = bits[:11].flip(0)     # out and back: frame j == 22 - j
+    masks[12:] = masks[:11].flip(0)
+    monkeypatch.setattr(loop_closure, "PAIR_BUDGET_BYTES",
+                        100 * 512 * 512 * 4)
+    pairwise_match_counts = loop_closure.pairwise_match_counts
+    before = hamming.hamming_distance_matrix_pairs.launches
+    got = pairwise_match_counts(bits, masks, 80)
+    torch.cuda.synchronize()
+    assert hamming.hamming_distance_matrix_pairs.launches == before + 6
+    ref = pairwise_match_counts(bits, masks, 80, plain=True)
+    assert torch.equal(got, ref)
+    fold = torch.arange(23, device=dev)
+    assert torch.equal(got[fold, 22 - fold], got[fold, fold])
+
+
+@pytest.mark.parametrize("mode", ["rotation", "revisit", "revisit_sim3",
+                                  "essential"])
+def test_close_loops_every_mode_on_the_card(dev, mode):
+    """close_loops on the card in each mode, through the kernels and
+    through their plain versions under the same draws: the same counts,
+    edges and support, poses within 1e-5; the batched Hamming launched
+    once (one chunk).  And on CPU copies of the same inputs (the path the
+    CPU tests hold to the JAX package): the same counts, and outside
+    'essential' mode (whose draws a CPU generator makes differently) the
+    same edges and support, poses within 1e-4."""
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        FrontendConfig, frame_features, make_pairs, precompute_frontend,
+    )
+    from photogrammetry_tpu_torch.sfm.loop_closure import close_loops
+    from photogrammetry_tpu_torch.synth.star_scene import (
+        StarSceneConfig, generate_sequence, render_frame,
+    )
+
+    scene = generate_sequence(StarSceneConfig(num_frames=5, supersample=2))
+    cfg, k = scene["config"], scene["k"]
+    cx = scene["centers"][2][0] + 0.02          # a revisit of frame 2
+    yaw = np.arctan2(cx, cfg.depth)
+    r = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                  [-np.sin(yaw), 0, np.cos(yaw)]])
+    frames = np.concatenate([scene["frames"], render_frame(
+        cfg, r, -r @ np.array([cx, 0.0, 0.0]), k)[None]])
+    rs = torch.tensor(np.concatenate([scene["rs"], r[None]]),
+                      dtype=torch.float32, device=dev)
+    ts = torch.tensor(np.concatenate([scene["ts"],
+                                      (-r @ [cx, 0.0, 0.0])[None]]),
+                      dtype=torch.float32, device=dev)
+    fc = FrontendConfig(detection_threshold=20.0, max_keypoints=256,
+                        suppression_radius=4.0, hamming_threshold=80)
+    stacked = precompute_frontend(torch.tensor(frames, dtype=torch.float32,
+                                               device=dev),
+                                  make_pairs(fc, device=dev), fc)
+    feats = [frame_features(stacked, t) for t in range(len(frames))]
+    kmat = torch.tensor(k, device=dev)
+    out = []
+    for plain in (False, True):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        before = hamming.hamming_distance_matrix_pairs.launches
+        out.append(close_loops(feats, rs, ts, kmat, fc, generator=gen,
+                               min_gap=3, min_matches=18, mode=mode,
+                               plain=plain))
+        launched = hamming.hamming_distance_matrix_pairs.launches - before
+        assert launched == (0 if plain else 1)
+    (rs_k, ts_k, info_k), (rs_p, ts_p, info_p) = out
+    assert np.array_equal(info_k["counts"], info_p["counts"])
+    assert info_k["loop_edges"] == info_p["loop_edges"]
+    assert info_k.get("inliers") == info_p.get("inliers")
+    assert (2, 5) in info_k["loop_edges"] or mode == "essential"
+    for a, b in ((rs_k, rs_p), (ts_k, ts_p)):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) < 1e-5
+    feats_cpu = [type(f)(points=type(f.points)(*(x.cpu() for x in f.points)),
+                         bits=f.bits.cpu(), xy=f.xy.cpu()) for f in feats]
+    rs_c, ts_c, info_c = close_loops(
+        feats_cpu, rs.cpu(), ts.cpu(), kmat.cpu(), fc,
+        generator=torch.Generator().manual_seed(7), min_gap=3,
+        min_matches=18, mode=mode)
+    assert np.array_equal(info_k["counts"], info_c["counts"])
+    if mode != "essential":
+        assert info_k["loop_edges"] == info_c["loop_edges"]
+        assert info_k.get("inliers") == info_c.get("inliers")
+        for a, b in ((rs_k, rs_c), (ts_k, ts_c)):
+            a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b)
+            assert float((a - b).abs().max()) < 1e-4
+
+
 def _fast_case(dev, name):
     rng = np.random.default_rng(len(name))
     if name == "constant":

@@ -221,3 +221,21 @@ def test_two_view_injected_samples(planar, model):
                                   np.sort(np.asarray(ref.cheirality)))
     assert rotation_angle_deg(got.r.numpy(), ref.r) < 0.1
     assert direction_angle_deg(got.t.numpy(), ref.t) < 0.5
+
+
+def test_smallest_eigvec_gives_nan_for_a_non_finite_matrix():
+    """jnp.linalg.eigh returns NaN for a matrix with a NaN entry, where
+    torch.linalg.eigh raises for the whole batch: the port gives NaN for
+    that matrix and the eigenvector for the others."""
+    from photogrammetry_tpu_torch.sfm.epipolar import smallest_eigvec
+
+    rng = np.random.default_rng(4)
+    m = rng.normal(size=(3, 5, 5)).astype(np.float32)
+    gram = m @ m.transpose(0, 2, 1)
+    gram[1, 2, 3] = np.nan
+    gram[2, 0, 0] = np.inf
+    got = smallest_eigvec(_t(gram)).numpy()
+    assert np.isnan(got[1:]).all() and np.isfinite(got[0]).all()
+    ref = np.asarray(jnp.linalg.eigh(jnp.asarray(gram))[1][..., :, 0])
+    assert np.isnan(ref[1]).all()
+    assert_same_up_to_sign(got[0], ref[0], atol=1e-5)

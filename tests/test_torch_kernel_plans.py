@@ -1,10 +1,13 @@
 """The launch plans and argument checks of the redesigned Schur, remap and
-BRIEF kernels, on the CPU.
+BRIEF kernels and of the Hamming kernel's batched entry, on the CPU.
 
 The CUDA kernels themselves run only on a card (``tests/test_torch_cuda.py``);
 what decides their grids is plain Python and is held here: the Schur
 kernel's split of the landmark axis into slabs (``schur.split_plan``) and
-the remap kernel's chunking of the frames (``remap.frame_plan``).  The
+the remap kernel's chunking of the frames (``remap.frame_plan``), the
+Hamming kernel's tile over a batch of frame pairs (``hamming.tile_plan``
+with ``batch``) and loop closure's chunks of pairs
+(``loop_closure.pair_chunk``).  The
 wrappers' refusals are reached with tensors on the ``meta`` device (no
 card needed: they are refused before anything is launched), and CPU
 tensors still take the plain versions, which ``tests/test_torch_ba.py`` and
@@ -14,7 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from photogrammetry_tpu_torch.kernels import brief_pack, remap, schur
+from photogrammetry_tpu_torch.kernels import brief_pack, hamming, remap, schur
+from photogrammetry_tpu_torch.ops.match import (
+    INT_INF, mutual_nearest_counts, mutual_nearest_matches,
+)
+from photogrammetry_tpu_torch.sfm import loop_closure
 
 SCHUR_F = (1, 5, 12, 16, 17, 201)
 SCHUR_T = (0, 1, 31, 32, 33, 700, 701, 1024, 4096)
@@ -229,3 +236,121 @@ def test_brief_plan_covers_the_keypoints_and_fits_shared_memory(n, p):
     assert brief_pack.smem_bytes(p) <= brief_pack.SMEM_LIMIT
     # the pair table: four int arrays, P rounded up to a whole 16-byte word
     assert brief_pack.smem_bytes(p) == 16 * (-(-p // 4) * 4)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 7, 9, 529, 4096, 65535])
+@pytest.mark.parametrize("n", [1, 17, 512, 513, 2048])
+def test_hamming_batched_tile_plan_covers_and_fills_the_card(n, batch):
+    plan = hamming.tile_plan(n, n, batch)
+    assert plan[:4] in hamming.TILES
+    assert plan.grid_y * plan.bm >= n > (plan.grid_y - 1) * plan.bm
+    assert plan.grid_x * plan.bn >= n > (plan.grid_x - 1) * plan.bn
+    blocks = plan.grid_x * plan.grid_y * batch
+    # the largest tile that still gives every SM a block, else the smallest
+    assert blocks >= hamming.SM_COUNT or plan[:4] == hamming.TILES[-1]
+    bigger = [t for t in hamming.TILES if t[0] * t[1] > plan.bm * plan.bn]
+    for t in bigger:
+        assert -(-n // t[0]) * -(-n // t[1]) * batch < hamming.SM_COUNT
+    assert hamming.tile_plan(n, n) == hamming.tile_plan(n, n, 1)
+
+
+def test_hamming_batched_tile_plan_at_the_loop_shapes():
+    # F = 23 and 64 frames of 512 keypoints: 529 and 4,096 pairs
+    for q in (529, 4096):
+        plan = hamming.tile_plan(512, 512, q)
+        assert (plan.bm, plan.bn) == (128, 128)
+        assert plan.grid_x * plan.grid_y * q == 16 * q
+    # one pair alone keeps the single matrix's 32 x 32 tile
+    assert hamming.tile_plan(512, 512, 1)[:2] == (32, 32)
+
+
+@pytest.mark.parametrize("k", [1, 17, 256, 512, 513, 4096])
+@pytest.mark.parametrize("budget", [1, 1 << 20, loop_closure.PAIR_BUDGET_BYTES])
+def test_pair_chunk_stays_within_the_budget(k, budget, monkeypatch):
+    assert loop_closure.pair_chunk(512) == 1024   # F = 23: one launch
+    monkeypatch.setattr(loop_closure, "PAIR_BUDGET_BYTES", budget)
+    chunk = loop_closure.pair_chunk(k)
+    assert 1 <= chunk <= hamming.MAX_PAIRS
+    assert chunk == 1 or chunk * k * k * 4 <= budget
+    assert chunk == hamming.MAX_PAIRS or (chunk + 1) * k * k * 4 > budget
+
+
+def _pairs_meta(f=3, k=8, p=32, q=5):
+    return [torch.empty((f, k, p), dtype=torch.uint8, device="meta"),
+            torch.empty((f, k), dtype=torch.bool, device="meta"),
+            torch.empty((q,), dtype=torch.int32, device="meta"),
+            torch.empty((q,), dtype=torch.int32, device="meta")]
+
+
+@pytest.mark.parametrize("case", ["dims", "mask_shape", "index_shape",
+                                  "two_devices", "dtype_bits", "dtype_mask",
+                                  "dtype_index", "non_contiguous",
+                                  "too_many_pairs", "device"])
+def test_hamming_pairs_wrapper_refuses(case):
+    args, match = _pairs_meta(), "unsupported device"
+    bits, masks, ii, jj = args
+    if case == "dims":
+        args[0], match = bits[0], "do not pair"
+    elif case == "mask_shape":
+        args[1], match = masks[:, :7], "do not pair"
+    elif case == "index_shape":
+        args[3], match = jj[:4], "do not pair"
+    elif case == "two_devices":
+        args[2], match = torch.zeros(5, dtype=torch.int32), "two devices"
+    elif case == "dtype_bits":
+        args[0], match = bits.to(torch.int32), "uint8 bits"
+    elif case == "dtype_mask":
+        args[1], match = masks.to(torch.uint8), "bool masks"
+    elif case == "dtype_index":
+        args[2], match = ii.to(torch.int64), "int32 indices"
+    elif case == "non_contiguous":
+        args[0] = torch.empty((3, 32, 8), dtype=torch.uint8,
+                              device="meta").transpose(1, 2)
+        match = "contiguous"
+    elif case == "too_many_pairs":
+        args[2:], match = _pairs_meta(q=hamming.MAX_PAIRS + 1)[2:], "at most"
+    with pytest.raises(ValueError, match=match):
+        hamming.hamming_distance_matrix_pairs(*args)
+
+
+@pytest.mark.parametrize("p", [1, 48, 256])
+def test_hamming_pairs_wrapper_takes_the_plain_version_on_the_cpu(p):
+    """Every pair, repeats and ii == jj included, equal to the single
+    matrix of its two frames; no kernel launch on the CPU."""
+    rng = np.random.default_rng(p)
+    f, k = 5, 37
+    bits = torch.tensor(rng.integers(0, 2, (f, k, p)), dtype=torch.uint8)
+    masks = torch.tensor(rng.random((f, k)) > 0.25)
+    masks[3] = False                                  # a frame all masked
+    ii = torch.tensor([0, 1, 1, 4, 3, 2, 0], dtype=torch.int32)
+    jj = torch.tensor([0, 2, 1, 0, 1, 2, 3], dtype=torch.int32)
+    before = hamming.hamming_distance_matrix_pairs.launches
+    got = hamming.hamming_distance_matrix_pairs(bits, masks, ii, jj)
+    assert hamming.hamming_distance_matrix_pairs.launches == before
+    assert got.shape == (7, k, k) and got.dtype == torch.int32
+    for q, (a, b) in enumerate(zip(ii.tolist(), jj.tolist())):
+        assert torch.equal(got[q], hamming.hamming_distance_matrix_plain(
+            bits[a], bits[b], masks[a], masks[b]))
+    assert bool((got[4] == INT_INF).all())
+
+
+def test_mutual_nearest_counts_is_the_batched_match_count():
+    """Ties (repeated descriptors) go to the first index on both axes, as
+    mutual_nearest_matches (and jnp.argmin) break them."""
+    rng = np.random.default_rng(5)
+    bits = torch.tensor(rng.integers(0, 2, (4, 30, 64)), dtype=torch.uint8)
+    bits[1, 10:20] = bits[0, :10]          # ties across and within frames
+    bits[1, 20:25] = bits[1, 10:15]
+    masks = torch.tensor(rng.random((4, 30)) > 0.1)
+    idx = torch.arange(4, dtype=torch.int32)
+    ii, jj = idx.repeat_interleave(4), idx.repeat(4)
+    d = hamming.hamming_distance_matrix_pairs(bits, masks, ii, jj)
+    for thr in (0, 20, 80):
+        got = mutual_nearest_counts(d, thr)
+        want = [int(mutual_nearest_matches(m, thr)[2].sum()) for m in d]
+        assert got.dtype == torch.int32 and got.tolist() == want
+    counts = loop_closure.pairwise_match_counts(bits, masks, 80)
+    assert counts.tolist() == mutual_nearest_counts(d, 80).view(4, 4).tolist()
+    # (i, j) and (j, i) take their argmins on opposite axes, and find the
+    # same mutual pairs (tests/test_loop_closure.py asserts the symmetry)
+    assert torch.equal(counts, counts.T)

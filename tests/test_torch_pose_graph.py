@@ -1,0 +1,247 @@
+"""Port parity: the SE(3) and Sim(3) pose-graph optimisers.
+
+The graphs are built by tests/test_pose_graph.py's own helpers in JAX and
+carried across with ``convert.state_from_jax``.  Tolerances: residuals and
+Jacobians (forward-mode autodiff in both packages) within 1e-5 abs; the
+optimised poses within 1e-4 abs and the costs within 1e-4 relative (1e-7
+abs near zero), f32 LM runs of 5-30 iterations; and the JAX tests' own
+assertions (cost reduction, ATE against drift, gauge, scale recovery)
+repeated on the port.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from photogrammetry_tpu.sfm import loop_closure as jlc
+from photogrammetry_tpu.sfm import pose_graph as jpg
+from photogrammetry_tpu_torch.convert import state_from_jax
+from photogrammetry_tpu_torch.sfm import loop_closure as lc
+from photogrammetry_tpu_torch.sfm import pose_graph as pg
+from photogrammetry_tpu_torch.sfm.metrics import absolute_trajectory_error
+from test_pose_graph import build_graph, centers, circle_trajectory
+
+JAC_TOL = dict(rtol=0, atol=1e-5)
+# JAX's per-edge terms, compiled once (un-jitted they dispatch op by op)
+JAX_SE3_TERMS = jax.jit(jpg._edge_terms)
+JAX_SIM3_TERMS = jax.jit(jpg._sim3_edge_terms)
+POSE_TOL = dict(rtol=0, atol=1e-4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: the suite runs in several worker processes on a
+    few cores, where the port's many small CPU ops slow down by an order
+    of magnitude when every process also starts a thread per core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+def _ate(rs, ts, gt):
+    return float(absolute_trajectory_error(
+        torch.tensor(centers(rs, ts), dtype=torch.float64),
+        torch.tensor(gt, dtype=torch.float64)))
+
+
+def _drifted_chain(g, rs_gt, ts_gt):
+    """Integrate the noisy odometry chain (classic drifted odometry)."""
+    rs0, ts0 = [rs_gt[0]], [ts_gt[0]]
+    for e in range(len(rs_gt) - 1):
+        zr, zt = np.asarray(g.z_rs[e]), np.asarray(g.z_ts[e])
+        rs0.append(zr @ rs0[-1])
+        ts0.append(zr @ ts0[-1] + zt)
+    return (np.stack(rs0).astype(np.float32),
+            np.stack(ts0).astype(np.float32))
+
+
+def _sim3_drift_problem(n=40, gamma=1.015):
+    """tests/test_pose_graph.py::test_sim3_recovers_scale_drift's circle
+    with compounding scale drift and one revisit edge of measured scale."""
+    theta = np.linspace(0.0, 2 * np.pi, n)
+    centers_gt = np.stack([2 * np.cos(theta), 2 * np.sin(theta),
+                           np.zeros(n)], -1).astype(np.float32)
+    rs_gt = np.zeros((n, 3, 3), np.float32)
+    for t in range(n):
+        c, s = np.cos(theta[t]), np.sin(theta[t])
+        rs_gt[t] = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1]], np.float32)
+    steps = np.diff(centers_gt, axis=0)
+    drift = steps * (gamma ** np.arange(1, n))[:, None]
+    centers_d = np.concatenate([centers_gt[:1],
+                                centers_gt[0] + np.cumsum(drift, 0)])
+    ts_d = np.einsum("nij,nj->ni", rs_gt, -centers_d).astype(np.float32)
+    rs, ts = jnp.asarray(rs_gt), jnp.asarray(ts_d)
+    edges = [(t, t + 1) for t in range(n - 1)] + [(0, n - 1)]
+    zr, zt, zs, w = [], [], [], []
+    for i, j in edges[:-1]:
+        r, t = jpg.relative_pose(rs[i], ts[i], rs[j], ts[j])
+        zr.append(r), zt.append(t), zs.append(1.0), w.append(1.0)
+    zr.append(jnp.asarray(rs_gt[n - 1] @ rs_gt[0].T))
+    zt.append(jnp.zeros(3)), zs.append(float(gamma ** (n - 1)))
+    w.append(50.0)
+    g3 = jpg.PoseGraph(edges=jnp.asarray(edges, jnp.int32),
+                       z_rs=jnp.stack(zr), z_ts=jnp.stack(zt),
+                       weights=jnp.asarray(w, jnp.float32))
+    g7 = jpg.PoseGraphSim3(edges=g3.edges, z_rs=g3.z_rs, z_ts=g3.z_ts,
+                           z_ss=jnp.asarray(zs, jnp.float32),
+                           weights=g3.weights)
+    return rs_gt, ts_d, centers_gt, g3, g7
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.05, 0.3])
+def test_se3_residuals_and_jacobians_match_jax(noise):
+    rs, ts = circle_trajectory(n=12)
+    g = build_graph(rs, ts, noise=noise, seed=2)
+    ref = JAX_SE3_TERMS(jnp.asarray(rs), jnp.asarray(ts), g)
+    got = pg._edge_terms(_t(rs), _t(ts), state_from_jax(g, device="cpu"))
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **JAC_TOL)
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.05])
+def test_sim3_residuals_and_jacobians_match_jax(noise):
+    rs, ts = circle_trajectory(n=10)
+    g = build_graph(rs, ts, noise=noise, seed=5)
+    zs = np.random.default_rng(5).uniform(0.8, 1.25, len(g.edges))
+    g7 = jpg.PoseGraphSim3(edges=g.edges, z_rs=g.z_rs, z_ts=g.z_ts,
+                           z_ss=jnp.asarray(zs, jnp.float32),
+                           weights=g.weights)
+    gs = np.random.default_rng(6).normal(0, 0.2, 10).astype(np.float32)
+    ref = JAX_SIM3_TERMS(jnp.asarray(rs), jnp.asarray(ts), jnp.asarray(gs),
+                         g7)
+    got = pg._sim3_edge_terms(_t(rs), _t(ts), _t(gs),
+                              state_from_jax(g7, device="cpu"))
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **JAC_TOL)
+
+
+def test_residual_zero_at_ground_truth():
+    rs, ts = circle_trajectory()
+    g = state_from_jax(build_graph(rs, ts, noise=0.0), device="cpu")
+    ii, jj = g.edges[:, 0].long(), g.edges[:, 1].long()
+    r = pg._edge_residual(_t(rs)[ii], _t(ts)[ii], _t(rs)[jj], _t(ts)[jj],
+                          g.z_rs, g.z_ts)
+    assert float(r.abs().max()) < 1e-5
+
+
+def test_pose_graph_closes_loop_like_jax():
+    rs_gt, ts_gt = circle_trajectory(n=20)
+    g = build_graph(rs_gt, ts_gt, noise=0.05)
+    rs0, ts0 = _drifted_chain(g, rs_gt, ts_gt)
+    ref = jpg.optimize_pose_graph(jnp.asarray(rs0), jnp.asarray(ts0), g,
+                                  num_iterations=25)
+    got = pg.optimize_pose_graph(_t(rs0), _t(ts0),
+                                 state_from_jax(g, device="cpu"),
+                                 num_iterations=25)
+    np.testing.assert_allclose(got.rs.numpy(), np.asarray(ref.rs), **POSE_TOL)
+    np.testing.assert_allclose(got.ts.numpy(), np.asarray(ref.ts), **POSE_TOL)
+    np.testing.assert_allclose(float(got.cost), float(ref.cost), rtol=1e-4)
+    np.testing.assert_allclose(float(got.initial_cost),
+                               float(ref.initial_cost), rtol=1e-4)
+    # tests/test_pose_graph.py::test_pose_graph_closes_loop on the port
+    gt = centers(rs_gt, ts_gt)
+    assert float(got.cost) < 0.1 * float(got.initial_cost)
+    assert _ate(got.rs, got.ts, gt) < 0.5 * _ate(rs0, ts0, gt)
+
+
+def test_gauge_node_fixed_and_perfect_graph_stays_put():
+    rs_gt, ts_gt = circle_trajectory(n=6)
+    g = build_graph(rs_gt, ts_gt, noise=0.05)
+    ref = jpg.optimize_pose_graph(jnp.asarray(rs_gt), jnp.asarray(ts_gt), g,
+                                  num_iterations=5)
+    got = pg.optimize_pose_graph(_t(rs_gt), _t(ts_gt),
+                                 state_from_jax(g, device="cpu"),
+                                 num_iterations=5)
+    np.testing.assert_allclose(got.rs[0].numpy(), rs_gt[0], atol=1e-6)
+    np.testing.assert_allclose(got.ts[0].numpy(), ts_gt[0], atol=1e-6)
+    np.testing.assert_allclose(got.ts.numpy(), np.asarray(ref.ts), **POSE_TOL)
+    rs_gt, ts_gt = circle_trajectory(n=8)
+    g = state_from_jax(build_graph(rs_gt, ts_gt, noise=0.0), device="cpu")
+    res = pg.optimize_pose_graph(_t(rs_gt), _t(ts_gt), g, num_iterations=5)
+    assert float(res.cost) < 1e-8
+    np.testing.assert_allclose(res.rs.numpy(), rs_gt, atol=1e-4)
+
+
+def test_fixed_nodes_freeze_more_than_the_gauge():
+    rs_gt, ts_gt = circle_trajectory(n=8)
+    g = build_graph(rs_gt, ts_gt, noise=0.05, seed=3)
+    fixed = np.ones(8, np.float32)
+    fixed[[0, 4]] = 0.0
+    ref = jpg.optimize_pose_graph(jnp.asarray(rs_gt), jnp.asarray(ts_gt), g,
+                                  num_iterations=8,
+                                  fixed_nodes=jnp.asarray(fixed))
+    got = pg.optimize_pose_graph(_t(rs_gt), _t(ts_gt),
+                                 state_from_jax(g, device="cpu"),
+                                 num_iterations=8, fixed_nodes=_t(fixed))
+    np.testing.assert_array_equal(got.rs[4].numpy(), rs_gt[4])
+    np.testing.assert_allclose(got.rs.numpy(), np.asarray(ref.rs), **POSE_TOL)
+    np.testing.assert_allclose(got.ts.numpy(), np.asarray(ref.ts), **POSE_TOL)
+
+
+def test_sim3_recovers_scale_drift_like_jax():
+    rs, ts, gt, g3, g7 = _sim3_drift_problem()
+    ref3 = jpg.optimize_pose_graph(jnp.asarray(rs), jnp.asarray(ts), g3,
+                                   num_iterations=30)
+    ref7 = jpg.optimize_pose_graph_sim3(jnp.asarray(rs), jnp.asarray(ts), g7,
+                                        num_iterations=30)
+    got3 = pg.optimize_pose_graph(_t(rs), _t(ts),
+                                  state_from_jax(g3, device="cpu"),
+                                  num_iterations=30)
+    got7 = pg.optimize_pose_graph_sim3(_t(rs), _t(ts),
+                                       state_from_jax(g7, device="cpu"),
+                                       num_iterations=30)
+    for got, ref in ((got3, ref3), (got7, ref7)):
+        np.testing.assert_allclose(got.rs.numpy(), np.asarray(ref.rs),
+                                   **POSE_TOL)
+        np.testing.assert_allclose(got.ts.numpy(), np.asarray(ref.ts),
+                                   **POSE_TOL)
+        np.testing.assert_allclose(float(got.cost), float(ref.cost),
+                                   rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(got7.scales.numpy(), np.asarray(ref7.scales),
+                               rtol=1e-4)
+    # the JAX test's assertions on the port
+    ate_drift = _ate(rs, ts, gt)
+    ate_se3 = _ate(got3.rs, got3.ts, gt)
+    ate_sim3 = _ate(got7.rs, got7.ts, gt)
+    assert ate_sim3 < 0.02 * ate_drift, (ate_drift, ate_se3, ate_sim3)
+    assert ate_sim3 < 0.1 * ate_se3, (ate_drift, ate_se3, ate_sim3)
+    np.testing.assert_allclose(float(got7.scales[-1]), 1.015 ** 39,
+                               rtol=0.05)
+
+
+def test_build_pose_graph_matches_jax():
+    rng = np.random.default_rng(0)
+    rs, ts = circle_trajectory(n=5)
+    ts = ts + rng.normal(0, 0.1, ts.shape).astype(np.float32)
+    zr, zt = jpg.relative_pose(jnp.asarray(rs[0]), jnp.asarray(ts[0]),
+                               jnp.asarray(rs[3]), jnp.asarray(ts[3]))
+    ref = jlc.build_pose_graph(rs, ts, [(0, 3)], [(zr, zt)], loop_weight=2.0)
+    got = lc.build_pose_graph(rs, ts, [(0, 3)],
+                              [(np.asarray(zr), np.asarray(zt))],
+                              loop_weight=2.0, device="cpu")
+    assert got.edges.shape == (5, 2) and float(got.weights[-1]) == 2.0
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.from_numpy(np.asarray(b).copy()).dtype
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-6)
+    # odometry edges reproduce the trajectory exactly (zero residual)
+    res = pg.optimize_pose_graph(_t(rs), _t(ts), got, num_iterations=3)
+    assert float(res.initial_cost) < 1e-8
+
+
+def test_state_from_jax_carries_graphs():
+    rs, ts, _, g3, g7 = _sim3_drift_problem(n=6)
+    for g, cls in ((g3, pg.PoseGraph), (g7, pg.PoseGraphSim3)):
+        got = state_from_jax(g, device="cpu")
+        assert isinstance(got, cls)
+        for a, b in zip(got, g):
+            assert a.dtype == torch.from_numpy(np.asarray(b).copy()).dtype
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
