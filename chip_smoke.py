@@ -13,8 +13,11 @@ Phases, each printing one JSON line with its seconds:
      0 and 2, the SfM phase all 12);
   4. parity: FAST, BRIEF and Hamming against their plain PyTorch versions
      on the card, at the two-view slice's shapes (a rendered frame, its
-     2048 keypoints and 256 BRIEF pairs, the 2048x2048 Hamming matrix)
-     and at ragged ones; all outputs are integers and must be bit-exact.
+     2048 keypoints and 256 BRIEF pairs, the 2048x2048 Hamming matrix),
+     at the pyramid's (FAST and BRIEF on the 12 frames' 540x960 and
+     270x480 octaves, Hamming at 1024 x 1024 between two frames' merged
+     octaves) and at ragged ones; all outputs are integers and must be
+     bit-exact.
      FAST also on the 12 frames, 13 noise frames, images smaller than the
      7-px stencil, widths that are not a multiple of 4, a constant image,
      an isolated peak (a ring wholly outside: score 16) and a quantised
@@ -28,7 +31,8 @@ Phases, each printing one JSON line with its seconds:
      on a side stream;
   5. schur_parity: the Schur kernel against its plain einsums at the
      SfM path's F=12/T=1024, bench_all.py's F=16/T=4096, a ragged
-     F=5/T=700 and one shape for each branch of the kernel (one camera, a
+     F=5/T=700, the submap path's global BA at F=23/T=4096 and one shape
+     for each branch of the kernel (one camera, a
      ragged camera tile, one landmark, none, odd T, a ragged last tile;
      operands at an odd offset into a larger allocation; a side stream):
      every element within 3T * 2^-23 * (|A| |B|^T), the worst-case f32
@@ -108,6 +112,11 @@ Phases, each printing one JSON line with its seconds:
      on the 12 frames, the snapshot reloaded equal to the run's state, and
      a run resumed from a snapshot cut at frame 7 within the SfM gate that
      runs frames 8-11 and no other;
+     timing_shapes: FAST on the 540x960 octave (B = 12), BRIEF there at
+     the keypoints the pyramid path detects on it (beside its gather
+     floor), Hamming at the pyramid's 1024 x 1024, Schur at the global
+     BA's F = 23, T = 4096 beside the cuBLAS pair, by CUDA-graph replay
+     and CUDA events (no profiler session), with their bounds;
  10. timing: each kernel, its plain version and, where one exists, one
      PyTorch call computing the same function (Hamming: ``cdist(p=0)``,
      at the forward path's 2048x2048 and the SfM path's 512x512;
@@ -138,10 +147,40 @@ Phases, each printing one JSON line with its seconds:
      keypoints (device ms by graph replay, call ms, bound, plain and
      batched ``cdist(p=0)`` CUDA-event ms), and the wall, busy and idle
      share of ``close_loops`` at F = 23 and of ``optimize_pose_graph``
-     alone.
+     alone;
+ 11. keyframes: ``run_keyframed_sfm(restarts=3)`` on the 12 frames at
+     KF_DISP_PX (4-8 keyframes) and KF_SEED, launches counted; keyframe
+     selection kernel vs plain (the same list and features), localization
+     kernel vs plain on the run's map (the same path a frame, poses within
+     1e-4); every frame posed, ATE of the trajectory and of the keyframe
+     map and fallbacks, reported (no seed of the sweep behind KF_SEED
+     meets ATE < 0.2); one ``run_sfm --keyframe-disp`` on the
+     frames as files; one keyframed run's frames/s (an unprofiled call),
+     busy time and idle share (a profiled one);
+     pyramid: ``run_incremental_sfm_robust(restarts=3)`` with
+     ``pyramid_octaves=2`` (track capacity 2048) on the 12 frames,
+     launches counted (FAST and BRIEF once an octave a restart), its
+     features kernel vs plain bit for bit, ATE < 0.2 and > 80 landmarks
+     (reported beside the single-scale sfm phase's); one run's frames/s
+     (an unprofiled call), busy time and idle share (a profiled one);
+     submaps: ``run_sfm --submap-frames 12 --submap-overlap 4
+     --loop-closure --loop-mode revisit --loop-min-gap 5`` on the 23
+     out-and-back frames as files (spans (0, 12), (8, 20), (16, 23)),
+     launches counted, its frames/s from that (unprofiled) call; spans,
+     tracks, drops, the restarts each window took, each window's ATE and
+     the stitched one, loop edges (all fold pairs), 23 poses, ATE before
+     and after the cross-seam refine; then that refine on the run's
+     merged tracks and loop links under the ground-truth trajectory, with
+     the kernels (profiled: its busy time and idle share) and with the
+     plain versions (more than SUBMAP_REFINE_MIN_LANDMARKS landmarks,
+     poses within SUBMAP_REFINE_POSE_SHARE of its correction).  These
+     three come last: nothing reads the profiler after them.
 Then the ``{"kernels": [...]}`` line (each kernel's launches on every
-path, ``launches_loop`` on the loop-closure phase; Hamming's batched entry
-as its ``batched`` row) and, last, the ok line.  Any failure
+path, ``launches_loop`` on the loop-closure phase, ``launches_keyframes``,
+``launches_submaps`` and ``launches_pyramid`` on the new ones, each of
+FAST, BRIEF, Hamming and Schur > 0 there; the row at the new shape as
+``new_shape``; Hamming's batched entry as its ``batched`` row) and, last,
+the ok line.  Any failure
 raises and exits non-zero before the ok line.  Needs one CUDA card; exits
 2 without one.
 """
@@ -194,10 +233,11 @@ DEWARP_P99_TOL = 4.0
 SCHUR_SHAPES = ((12, 1024), (16, 4096), (5, 700))
 # parity shapes beyond those, one for each branch of the kernel: one
 # camera, a ragged camera tile, one landmark (fewer than any split), no
-# landmark, an odd T (camera rows that start 8-byte aligned only) and a
-# slab with a ragged last tile
+# landmark, an odd T (camera rows that start 8-byte aligned only), a
+# slab with a ragged last tile; and the submap path's cross-seam global
+# BA (23 frames, refine_submaps_global's 4096 merged tracks)
 SCHUR_PARITY_SHAPES = SCHUR_SHAPES + ((1, 1024), (17, 701), (12, 1), (3, 0),
-                                      (16, 701), (6, 2000))
+                                      (16, 701), (6, 2000), (23, 4096))
 # where the operands are also taken at an odd offset into a larger
 # allocation (4-byte aligned rows) and on a side stream
 SCHUR_OFFSET_SHAPES = ((12, 1024), (17, 701))
@@ -256,10 +296,54 @@ LOOP_SEED = 4
 # order of the reduction and of the correction themselves.
 LOOP_CPU_COST_SHARE = 1e-3
 LOOP_CPU_POSE_SHARE = 0.05
+# the pyramid phase: run_sfm --pyramid-octaves 2 (its track capacity 1024 x
+# octaves) on the 12-frame pan; the kernels' parity at each octave below
+# the frame down to PARITY_OCTAVES (540x960, 270x480)
+PYRAMID_OCTAVES = 2
+PARITY_OCTAVES = 2
+# The keyframes phase: the median-displacement gate (px) of run_sfm
+# --keyframe-disp and the RANSAC seed of its best-of-3 SfM.  Gates of 40,
+# 60 and 80 px keep 4-5 of the 12 frames, 30 px five ([0, 3, 6, 9, 11])
+# and 20 px six ([0, 2, 5, 7, 9, 11]), with the fewest fallbacks (none)
+# and the lowest mean ATE: 0.446 over seeds 0-5 (cli/sweep_sfm_seeds.py
+# --frames 12 --size 1080 1920 --focal 1560 --seeds 6 --restarts 3
+# --keyframe-disp 20, NVIDIA H100 80GB HBM3 at 700 W; 30 px 0.486, 40 px
+# 0.503).  Only seed 3 of six meets ATE < 0.2 (0.115; seed 1: 0.337):
+# keyframing a pan whose frames are already well spaced leaves a thin
+# map (44-82 landmarks against the full run's ~155), as the JAX package's
+# sfm/keyframes.py says of such sequences.  So the phase reports the ATE
+# and does not gate it, and keeps the SfM phase's seed.
+KF_DISP_PX = 20.0
+KF_SEED = SFM_SEED
+# the submaps phase: run_sfm --submap-frames 12 --submap-overlap 4 on the
+# 23-frame out-and-back pan (spans (0, 12), (8, 20), (16, 23))
+SUBMAP_FRAMES = 12
+SUBMAP_OVERLAP = 4
+# refine_submaps_global with the kernels against its plain run on the
+# same inputs (the run's merged tracks and loop links under the
+# ground-truth trajectory): poses within this share of the correction the
+# plain refine applied to its input poses.  Not an absolute tolerance: the
+# Schur kernel's f32 sums differ from the plain einsums' in the last bits,
+# and 2 x 30 LM iterations carry that into the poses (measured 2.0e-4
+# against a correction of 1.4e-2, 1.4% of it, on NVIDIA H100 80GB HBM3 at
+# 700 W); a fault in the kernel would move them by the order of the
+# correction itself, as LOOP_CPU_POSE_SHARE argues.  The refine must keep
+# more than SUBMAP_REFINE_MIN_LANDMARKS landmarks (the SfM runs' gate,
+# tests/test_incremental.py), so that the check covers a real BA.
+SUBMAP_REFINE_POSE_SHARE = 0.05
+SUBMAP_REFINE_MIN_LANDMARKS = 80
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def timed(label, fn, *args):
+    """``fn(*args)``, and a line with the seconds it took."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase_seconds": label, "seconds": time.perf_counter() - t0})
+    return out
 
 
 def cuda_ms(fn, iters: int = 20, reps: int = 5) -> float:
@@ -445,7 +529,9 @@ def check_kernels(dev, frames, seq, pairs, cfg):
         angles_cos_sin, gaussian_pairs, keypoint_orientations,
     )
     from photogrammetry_tpu_torch.ops.fast import extract_keypoints
-    from photogrammetry_tpu_torch.sfm.frontend import make_pairs
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        _downsample2, make_pairs, precompute_frontend,
+    )
     from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -550,6 +636,25 @@ def check_kernels(dev, frames, seq, pairs, cfg):
     check_brief("pan12_P1024_steered", pan, pan_coords, more[1024],
                 pan_ragged, pan_angles)
 
+    # the pyramid's octaves of the pan (540x960, 270x480): FAST at the SfM
+    # threshold, BRIEF at each octave's SFM_KEYPOINTS strongest keypoints
+    octave = pan
+    for o in range(1, PARITY_OCTAVES + 1):
+        octave = _downsample2(octave)
+        got = fast_stencil.fast_score_map_batch(
+            octave, sfm_cfg.detection_threshold)
+        ref = fast_stencil.fast_score_map_plain(
+            octave, sfm_cfg.detection_threshold)
+        e = max_err(got, ref)
+        errs["fast_score"] = max(errs["fast_score"], e)
+        cases.append(dict(kernel="fast_score", case=f"pan12_octave{o}",
+                          shape=list(octave.shape),
+                          corners=int((ref > 0).sum()), max_abs_err=e))
+        opts = [extract_keypoints(x, sfm_cfg.max_keypoints) for x in ref]
+        check_brief(f"pan12_octave{o}", octave,
+                    torch.stack([x.coords for x in opts]), sfm_pairs,
+                    torch.stack([x.mask for x in opts]))
+
     def check_hamming(label, a, b, ma, mb, stream=None):
         if stream is not None:
             stream.wait_stream(torch.cuda.current_stream(dev))
@@ -604,6 +709,12 @@ def check_kernels(dev, frames, seq, pairs, cfg):
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     check_hamming("side_stream", bits, bits.flip(0).contiguous(), pts.mask,
                   pts.mask.flip(0), stream=side)
+    # the pyramid's match: frames 0 and 1 of the pan, two octaves of
+    # SFM_KEYPOINTS merged (1024 x 1024, P = 256)
+    pyr = precompute_frontend(pan[:2], sfm_pairs, sfm_cfg,
+                              octaves=PYRAMID_OCTAVES, plain=True)
+    check_hamming("pyramid_1024", pyr.bits[0], pyr.bits[1],
+                  pyr.points.mask[0], pyr.points.mask[1])
     if dev.type == "cuda":
         torch.cuda.synchronize()
     emit({"phase": "parity", "cases": cases,
@@ -709,15 +820,44 @@ def time_row(row) -> dict:
     return t
 
 
+def brief_row(imgs, pts, prs) -> dict:
+    """The BRIEF kernel's timing row on (B, H, W) frames at a path's
+    keypoints, mask folded in.  Bytes: the distinct pixels the live
+    keypoints' in-bounds pairs touch, the live keypoints' coords, the mask
+    and pairs, the output (masked rows too: written as zeros); 12
+    operations a bit of a live keypoint (four sums, four bounds tests, a
+    compare, the index arithmetic).  A masked keypoint's coords are not
+    read and its bits not computed."""
+    import torch
+
+    from photogrammetry_tpu_torch.kernels import brief_pack
+
+    h, w = imgs.shape[-2:]
+    c, m = pts.coords, pts.mask
+    ends = c[..., None, None, :].long() + prs.long()
+    inb = (((ends >= 0) & (ends < torch.tensor([h, w], device=imgs.device)))
+           .all(-1).all(-1) & m[..., None])[..., None].expand(
+               *ends.shape[:-1])
+    frame = torch.arange(imgs.shape[0], device=imgs.device).view(-1, 1, 1, 1)
+    flat = (frame * h + ends[..., 0]) * w + ends[..., 1]
+    touched = int(torch.unique(flat[inb]).numel())
+    n, p = c.shape[0] * c.shape[1], prs.shape[0]
+    live = int(m.sum())
+    return dict(
+        run=lambda: brief_pack.brief_bits(imgs, c, prs, m),
+        plain=lambda: brief_pack.brief_bits_plain(imgs, c, prs, m),
+        library=None, floor=lambda: brief_pack.gather_probe(imgs, c, prs, m),
+        bytes=4 * touched + live * 8 + m.numel() + prs.numel() * 4 + n * p,
+        ops=live * p * 12, distinct_pixels=touched, live_keypoints=live)
+
+
 def time_all(dev, frames, seq, k, pairs, cfg, out):
     """Phase 8, two-view part: kernel, plain and library times with their
     bounds; the frontend's frames/s and the pair latency."""
     import torch
 
     from photogrammetry_tpu_torch.entry import forward
-    from photogrammetry_tpu_torch.kernels import (
-        brief_pack, fast_stencil, hamming,
-    )
+    from photogrammetry_tpu_torch.kernels import fast_stencil, hamming
     from photogrammetry_tpu_torch.sfm.frontend import (
         describe_bits, detect_and_describe, make_pairs, precompute_frontend,
     )
@@ -738,33 +878,6 @@ def time_all(dev, frames, seq, k, pairs, cfg, out):
     sfm_cfg = SfmConfig().frontend
     sfm_pairs = make_pairs(sfm_cfg, device=dev)
     sfm_pts = precompute_frontend(batch12, sfm_pairs, sfm_cfg).points
-
-    def brief_row(imgs, pts, prs):
-        """The BRIEF kernel on (B, H, W) frames at the path's keypoints,
-        mask folded in.  Bytes: the distinct pixels the live keypoints'
-        in-bounds pairs touch, the live keypoints' coords, the mask and
-        pairs, the output (masked rows too: written as zeros); 12
-        operations a bit of a live keypoint (four sums, four bounds tests,
-        a compare, the index arithmetic).  A masked keypoint's coords are
-        not read and its bits not computed."""
-        c, m = pts.coords, pts.mask
-        ends = c[..., None, None, :].long() + prs.long()
-        inb = (((ends >= 0) & (ends < torch.tensor([h, w], device=dev)))
-               .all(-1).all(-1) & m[..., None])[..., None].expand(
-                   *ends.shape[:-1])
-        frame = torch.arange(imgs.shape[0], device=dev).view(-1, 1, 1, 1)
-        flat = (frame * h + ends[..., 0]) * w + ends[..., 1]
-        touched = int(torch.unique(flat[inb]).numel())
-        n, p = c.shape[0] * c.shape[1], prs.shape[0]
-        live = int(m.sum())
-        return dict(
-            run=lambda: brief_pack.brief_bits(imgs, c, prs, m),
-            plain=lambda: brief_pack.brief_bits_plain(imgs, c, prs, m),
-            library=None, floor=lambda: brief_pack.gather_probe(
-                imgs, c, prs, m),
-            bytes=4 * touched + live * 8 + m.numel()
-            + prs.numel() * 4 + n * p,
-            ops=live * p * 12, distinct_pixels=touched, live_keypoints=live)
 
     def hamming_row(a, b, ma, mb):
         n1, n2 = a.shape[0], b.shape[0]
@@ -800,10 +913,12 @@ def time_all(dev, frames, seq, k, pairs, cfg, out):
         "hamming": hamming_row(b1, b2, m1, m2),
         f"hamming_{SFM_KEYPOINTS}": hamming_row(*sfm_bits),
     }
+    def describe():
+        return describe_bits(batch12, sfm_pts, sfm_pairs, sfm_cfg)
+
     # the describe stage of the SfM path: one device op, the kernel (no
     # mask multiply, no stacking)
-    _, describe_ops = device_profile(
-        lambda: describe_bits(batch12, sfm_pts, sfm_pairs, sfm_cfg), top=4)
+    _, describe_ops = device_profile(describe, top=4)
     timings = {name: time_row(row) for name, row in rows.items()}
     for name in ("brief_bits", "brief_bits_b12"):
         timings[name].update(gather_floor_ms=graph_ms(rows[name]["floor"]),
@@ -966,9 +1081,7 @@ def drive_sfm(dev, frames, k, centers, counters, phase="sfm", seed=SFM_SEED,
         torch.as_tensor(fr, dtype=torch.float32, device=dev), pairs,
         cfg.frontend, chunk=cfg.frontend_chunk, plain=plain)
         for fr, plain in ((out_frames, False), (ref_frames, True)))
-    same = all(torch.equal(a, b) for a, b in
-               zip([*fa.points, fa.bits, fa.xy], [*fb.points, fb.bits,
-                                                  fb.xy]))
+    same = features_equal(fa, fb)
     result = {"phase": phase, "frames": list(frames.shape), "seed": seed,
               "kernels": stats, "plain": ref_stats,
               "features_identical": same,
@@ -995,7 +1108,7 @@ def drive_sfm(dev, frames, k, centers, counters, phase="sfm", seed=SFM_SEED,
     if launches["brief_bits"] != 3:   # one describe of all 12 frames a restart
         raise AssertionError(f"BRIEF launches on the {phase} path: "
                              f"{launches}")
-    return launches, out_frames
+    return launches, out_frames, stats
 
 
 def tinted_rgb(frame):
@@ -1117,9 +1230,9 @@ def drive_dewarp_sfm(dev, seq, captured, k, centers, counters, cache_dir):
         return dewarp_frames(captured, DEWARP_COEFFS, cache_dir, dev,
                              plain=plain)
 
-    launches, dewarped = drive_sfm(dev, seq, k, centers, counters,
-                                   phase="dewarp_sfm", seed=DEWARP_SEED,
-                                   stage=stage)
+    launches, dewarped, _ = drive_sfm(dev, seq, k, centers, counters,
+                                      phase="dewarp_sfm", seed=DEWARP_SEED,
+                                      stage=stage)
     clean = torch.as_tensor(seq, device=dev).to(torch.float32)
     err = (dewarped - clean).abs()[:, 40:-40, 40:-40]
     stats = dict(mean=float(err.mean()),
@@ -1166,13 +1279,10 @@ def drive_steered(dev, counters, out_dir):
     and one ``run_sfm --oriented-brief --restarts 3`` on its 12-frame
     synthetic pan, whose ATE and landmarks are reported, not gated (the
     scene's round dots have no defined orientation)."""
-    import contextlib
     import dataclasses
-    import io
 
     import torch
 
-    from photogrammetry_tpu_torch.cli import run_sfm
     from photogrammetry_tpu_torch.sfm.frontend import (
         FrontendConfig, detect_and_describe, make_pairs, match_pair,
     )
@@ -1211,13 +1321,10 @@ def drive_steered(dev, counters, out_dir):
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    report = io.StringIO()
-    with contextlib.redirect_stdout(report):
-        run_sfm.main(["--synthetic-frames", str(SFM_FRAMES), "--restarts",
-                      "3", "--oriented-brief", "--device", str(dev),
-                      "--cloud", f"{out_dir}/cloud.ply",
-                      "--trajectory", f"{out_dir}/trajectory.json"])
-    cli = json.loads(report.getvalue().splitlines()[0])
+    cli = run_cli(["--synthetic-frames", str(SFM_FRAMES), "--restarts", "3",
+                   "--oriented-brief", "--device", str(dev),
+                   "--cloud", f"{out_dir}/cloud.ply",
+                   "--trajectory", f"{out_dir}/trajectory.json"])
     result["run_sfm_oriented_brief"] = dict(
         seconds=time.perf_counter() - t0, ate=cli.get("ate"),
         landmarks=cli["landmarks"], frames=cli["frames"],
@@ -1572,13 +1679,9 @@ def drive_loop_closure(dev, seq, k, centers, counters, out_dir):
     and one ``run_sfm --loop-closure --loop-mode revisit`` on a frames
     directory of the 23 frames.  Returns the launches and what the timing
     phase needs."""
-    import contextlib
-    import io
-
     import torch
 
     from photogrammetry_tpu_torch.cli import run_sfm
-    from photogrammetry_tpu_torch.io.image import write_image
     from photogrammetry_tpu_torch.sfm.frontend import (
         DescribedFrame, frame_features, make_pairs, precompute_frontend,
     )
@@ -1696,21 +1799,13 @@ def drive_loop_closure(dev, seq, k, centers, counters, out_dir):
 
     # the CLI on a frames directory of the 23 frames
     frames_dir = f"{out_dir}/loop_frames"
-    import os
-
-    os.makedirs(frames_dir, exist_ok=True)
-    for i, frame in enumerate(frames):
-        write_image(f"{frames_dir}/{i:02d}.bmp", frame)
-    h, w = frames.shape[1:]
-    report = io.StringIO()
+    write_frames(frames, frames_dir)
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(report):
-        run_sfm.main([frames_dir, "--fx", str(k[0, 0]), "--cx", str(k[0, 2]),
-                      "--cy", str(k[1, 2]), "--loop-closure", "--loop-mode",
-                      "revisit", "--device", str(dev),
-                      "--cloud", f"{out_dir}/loop_cloud.ply",
-                      "--trajectory", f"{out_dir}/loop_trajectory.json"])
-    cli = json.loads(report.getvalue().splitlines()[0])
+    cli = run_cli([frames_dir, "--fx", str(k[0, 0]), "--cx", str(k[0, 2]),
+                   "--cy", str(k[1, 2]), "--loop-closure", "--loop-mode",
+                   "revisit", "--device", str(dev),
+                   "--cloud", f"{out_dir}/loop_cloud.ply",
+                   "--trajectory", f"{out_dir}/loop_trajectory.json"])
     with open(f"{out_dir}/loop_trajectory.json") as fh:
         traj = json.load(fh)
     cli_edges = [tuple(e) for e in cli["loop_closure"]["loop_edges"]]
@@ -1792,6 +1887,492 @@ def drive_checkpoint(dev, seq, k, centers, counters, out_dir):
             or r["frames_run"] != list(range(cut_at + 1, len(seq))) \
             or not r["ate"] < 0.2 or r["landmarks"] <= 80:
         raise AssertionError(f"checkpoint/resume out of bounds: {result}")
+
+
+def profiled_run(fn, dev, frames: int, wall=None, top: bool = True):
+    """(fn's result, its timing) for ONE call of ``fn`` over ``frames``
+    frames under torch.profiler's device activity (one session): the wall
+    ms (``wall`` when the caller measured an unprofiled call, else the
+    host clock inside the session, the profiler's CUPTI tracing
+    included), frames/s, device busy ms (the raw device events' durations
+    summed: the profiler's own event list, ``key_averages``, takes far
+    longer to build for a whole SfM run), idle share, with ``top`` the top
+    device ops by name, and the ms spent after the call reading the
+    trace.  Busy time and ops are None where the profiler recorded nothing
+    (and on a CPU rehearsal)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def timing(wall_ms, busy=None, ops=None, post=None):
+        wall_ms = wall if wall is not None else wall_ms
+        return dict(frames=frames, wall_ms=wall_ms,
+                    frames_per_s=frames * 1e3 / wall_ms,
+                    device_busy_ms=busy,
+                    device_idle_share=(None if busy is None
+                                       else max(0.0, 1 - busy / wall_ms)),
+                    top_device_ops=ops, profiler_post_ms=post)
+
+    sync(dev)
+    t0 = time.perf_counter()
+    if dev.type != "cuda":          # a rehearsal on the CPU: no device
+        out = fn()
+        return out, timing((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync(dev)
+        t1 = time.perf_counter()
+    busy, by_name = 0.0, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms = e.duration_ns() / 1e6
+            busy += ms
+            if top:
+                name = e.name()
+                total, calls = by_name.get(name, (0.0, 0))
+                by_name[name] = (total + ms, calls + 1)
+    post = (time.perf_counter() - t1) * 1e3
+    ops = None
+    if top:
+        ops = [dict(name=name[:90], ms=ms, calls=calls)
+               for name, (ms, calls) in sorted(
+                   by_name.items(), key=lambda kv: -kv[1][0])[:6]]
+    return out, timing((t1 - t0) * 1e3, busy or None, ops, post)
+
+
+def wall_ms(fn, dev) -> float:
+    """Host-clock ms of one call of ``fn`` ending in a device synchronize
+    (the caller has just run the same code: no warm-up)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    fn()
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def features_equal(a, b) -> bool:
+    """Two DescribedFrames (or lists of them) identical leaf by leaf."""
+    import torch
+
+    if isinstance(a, list):
+        return all(features_equal(x, y) for x, y in zip(a, b))
+    return all(torch.equal(x, y) for x, y in
+               zip([*a.points, a.bits, a.xy], [*b.points, b.bits, b.xy]))
+
+
+def write_frames(frames, frames_dir) -> None:
+    """The frames as numbered BMP files (run_sfm's frames directory)."""
+    import os
+
+    from photogrammetry_tpu_torch.io.image import write_image
+
+    os.makedirs(frames_dir, exist_ok=True)
+    for i, frame in enumerate(frames):
+        write_image(f"{frames_dir}/{i:02d}.bmp", frame)
+
+
+def run_cli(args) -> dict:
+    """``run_sfm.main(args)``, its JSON report parsed."""
+    import contextlib
+    import io
+
+    from photogrammetry_tpu_torch.cli import run_sfm
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if run_sfm.main(args) != 0:
+            raise AssertionError(f"run_sfm {args} failed")
+    return json.loads(out.getvalue().splitlines()[0])
+
+
+def drive_keyframes(dev, seq, k, centers, counters, out_dir):
+    """The keyframes phase: ``run_keyframed_sfm(restarts=3)`` on the
+    12-frame pan at KF_DISP_PX and KF_SEED, launches counted; keyframe
+    selection and localization each again with the plain versions (the
+    same keyframes and features; on the run's own map the same path per
+    frame and poses within 1e-4); every frame posed; ATE of the full
+    trajectory and of the keyframe map and fallbacks, reported; one
+    ``run_sfm --keyframe-disp`` on the frames as files; then one keyframed
+    run (restarts 1) timed: wall from one call, busy time from a second
+    under the profiler."""
+    from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
+    from photogrammetry_tpu_torch.sfm.keyframes import (
+        localize_nonkeyframes, run_keyframed_sfm, select_keyframes,
+    )
+    from photogrammetry_tpu_torch.sfm.metrics import trajectory_ate
+
+    cfg = SfmConfig(collect_diagnostics=False)    # run_sfm's configuration
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rs, ts, kfs, res, info = run_keyframed_sfm(
+        seq, k, cfg, min_disp_px=KF_DISP_PX, seed=KF_SEED, restarts=3,
+        device=dev)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+
+    kfs_k, feats_k = select_keyframes(seq, cfg, KF_DISP_PX, device=dev)
+    kfs_p, feats_p = select_keyframes(seq, cfg, KF_DISP_PX, device=dev,
+                                      plain=True)
+    loc = {plain: localize_nonkeyframes(seq, kfs, feats_k, res, k, cfg,
+                                        seed=KF_SEED + 99, device=dev,
+                                        plain=plain)
+           for plain in (False, True)}
+    paths = {plain: [i.get("path", "fallback") for i in v[2]]
+             for plain, v in loc.items()}
+    pose_diff = max(float(np.abs(loc[False][0] - loc[True][0]).max()),
+                    float(np.abs(loc[False][1] - loc[True][1]).max()))
+
+    frames_dir = f"{out_dir}/keyframe_frames"
+    write_frames(seq, frames_dir)
+    t1 = time.perf_counter()
+    cli = run_cli([frames_dir, "--fx", str(k[0, 0]), "--cx", str(k[0, 2]),
+                   "--cy", str(k[1, 2]), "--keyframe-disp", str(KF_DISP_PX),
+                   "--device", str(dev), "--cloud", f"{out_dir}/kf.ply",
+                   "--trajectory", f"{out_dir}/kf.json"])
+    with open(f"{out_dir}/kf.json") as fh:
+        traj = json.load(fh)
+    cli_s = time.perf_counter() - t1
+
+    def once():
+        return run_keyframed_sfm(seq, k, cfg, min_disp_px=KF_DISP_PX,
+                                 seed=KF_SEED, device=dev)
+
+    _, timing = profiled_run(once, dev, len(seq),
+                             wall=wall_ms(once, dev))
+    result = {
+        "phase": "keyframes", "frames": list(seq.shape),
+        "min_disp_px": KF_DISP_PX, "seed": KF_SEED, "seconds": seconds,
+        "keyframes": kfs, "keyframes_plain": kfs_p,
+        "features_identical": features_equal(feats_k, feats_p),
+        "info": info, "fallbacks": sum(bool(i.get("fallback"))
+                                       for i in info),
+        "posed_frames": int(np.isfinite(rs).all(axis=(1, 2)).sum()),
+        "ate": trajectory_ate(rs, ts, centers),
+        "ate_keyframes": trajectory_ate(res.rs, res.ts, centers[kfs]),
+        "landmarks": len(res.points), "quality": res.quality,
+        "localize_paths_equal_plain": paths[False] == paths[True],
+        "localize_pose_max_abs_diff_kernel_vs_plain": pose_diff,
+        "run_sfm_keyframe_disp": dict(
+            seconds=cli_s, keyframes=cli.get("keyframes"),
+            quality=cli.get("quality"), centers=len(traj["centers"]),
+            ate=trajectory_ate(traj["rotations"], traj["translations"],
+                               centers)),
+        "timing": timing, "launches": launches}
+    emit(result)
+    bad = []
+    if not kfs == kfs_k == kfs_p or not 4 <= len(kfs) <= 8:
+        bad.append("keyframes differ kernel vs plain, or not 4-8 of 12")
+    if not result["features_identical"]:
+        bad.append("keyframe features differ kernel vs plain")
+    if not result["localize_paths_equal_plain"] or not pose_diff < 1e-4:
+        bad.append("localization differs kernel vs plain")
+    if result["posed_frames"] != len(seq) or rs.shape[0] != len(seq):
+        bad.append("a frame without a pose")
+    if cli.get("keyframes") != kfs or len(traj["centers"]) != len(seq):
+        bad.append("run_sfm --keyframe-disp")
+    if bad:
+        raise AssertionError(f"keyframes out of bounds: {bad}")
+    return launches
+
+
+def drive_submaps(dev, seq, k, rs_gt, centers, counters, out_dir):
+    """The submaps phase: ``run_sfm --submap-frames 12 --submap-overlap 4
+    --loop-closure --loop-mode revisit --loop-min-gap 5`` on the 23-frame
+    out-and-back pan as files, launches counted, its wall time (frames/s)
+    the host clock around that call; the restarts each window took
+    (``run_incremental_sfm`` calls by seed), each window's ATE and the
+    stitched trajectory's (``run_submap_sfm``'s result) and the cross-seam
+    refine's inputs, all spied on; spans, tracks, drops, loop edges, ATE
+    before and after the refine; every accepted edge a fold pair, 23
+    poses.  Then ``refine_submaps_global`` on the run's merged tracks and
+    loop links under the ground-truth trajectory (the run's own stitch
+    may fail: PERF.md), once with the kernels under the profiler (its
+    busy time and idle share) and once with the plain versions: more than
+    SUBMAP_REFINE_MIN_LANDMARKS landmarks, poses within
+    SUBMAP_REFINE_POSE_SHARE of the correction the plain refine made."""
+    from photogrammetry_tpu_torch.sfm import incremental, submaps
+    from photogrammetry_tpu_torch.sfm.metrics import trajectory_ate
+
+    import os
+
+    frames, gt = out_and_back(seq, centers)
+    n = len(frames)
+    frames_dir = f"{out_dir}/loop_frames"       # written by the loop phase
+    if not os.path.isdir(frames_dir) or len(os.listdir(frames_dir)) != n:
+        write_frames(frames, frames_dir)
+    windows, stitched, refines = {}, [], []
+    run_one, run_all, refine = (incremental.run_incremental_sfm,
+                                submaps.run_submap_sfm,
+                                submaps.refine_submaps_global)
+
+    def counting(frames_w, *args, seed=0, **kwargs):
+        windows.setdefault(seed % 7919, []).append(len(frames_w))
+        return run_one(frames_w, *args, seed=seed, **kwargs)
+
+    def stitching(*args, **kwargs):
+        res = run_all(*args, **kwargs)      # the CLI replaces its poses
+        stitched.append((res, res.rs.copy(), res.ts.copy()))
+        return res
+
+    def spying(*args, **kwargs):
+        refines.append((args, kwargs))
+        return refine(*args, **kwargs)
+
+    incremental.run_incremental_sfm = counting
+    submaps.run_submap_sfm = stitching
+    submaps.refine_submaps_global = spying
+    for c in counters.values():
+        c.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    try:
+        cli = run_cli([
+            frames_dir, "--fx", str(k[0, 0]), "--cx", str(k[0, 2]),
+            "--cy", str(k[1, 2]), "--submap-frames", str(SUBMAP_FRAMES),
+            "--submap-overlap", str(SUBMAP_OVERLAP), "--loop-closure",
+            "--loop-mode", "revisit", "--loop-min-gap", str(LOOP_MIN_GAP),
+            "--device", str(dev), "--cloud", f"{out_dir}/sub.ply",
+            "--trajectory", f"{out_dir}/sub.json"])
+        sync(dev)
+    finally:
+        incremental.run_incremental_sfm = run_one
+        submaps.run_submap_sfm = run_all
+        submaps.refine_submaps_global = refine
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {name: c.launches for name, c in counters.items()}
+    with open(f"{out_dir}/sub.json") as fh:
+        traj = json.load(fh)
+    edges = [tuple(e) for e in cli["loop_closure"]["loop_edges"]]
+    res, rs_stitched, ts_stitched = stitched[0]
+    args, kwargs = refines[0]
+    rs_in, ts_in = args[0], args[1]
+
+    # the refine under the ground truth, kernels against plain
+    rs_true = np.concatenate([rs_gt, rs_gt[-2::-1]]).astype(np.float32)
+    ts_true = -np.einsum("fij,fj->fi", rs_true, gt).astype(np.float32)
+    true_args = (rs_true, ts_true, *args[2:])
+    def refine_true():
+        return refine(*true_args, **kwargs)
+
+    (rs_k, ts_k, pts_k), refine_timing = profiled_run(
+        refine_true, dev, n, wall=wall_ms(refine_true, dev))
+    rs_p, ts_p, pts_p = refine(*true_args, **{**kwargs, "plain": True})
+    correction = max(float(np.abs(rs_p - rs_true).max()),
+                     float(np.abs(ts_p - ts_true).max()))
+    diff = max(float(np.abs(rs_k - rs_p).max()),
+               float(np.abs(ts_k - ts_p).max()))
+    result = {
+        "phase": "submaps", "frames": list(frames.shape),
+        "submap_frames": SUBMAP_FRAMES, "overlap": SUBMAP_OVERLAP,
+        "submaps": cli["submaps"],
+        "restarts_per_window": {str(w): len(v)
+                                for w, v in sorted(windows.items())},
+        "windows_ate": [trajectory_ate(w.rs, w.ts, gt[a:b])
+                        for w, (a, b) in zip(res.submaps, res.spans)],
+        # a window's turn, first camera to last, beside the truth's: the
+        # ATE of centres alone cannot tell a window from its mirror image
+        "windows_yaw_deg": [yaw_deg(w.rs[0], w.rs[-1]) for w in res.submaps],
+        "windows_yaw_deg_true": [yaw_deg(rs_true[a], rs_true[b - 1])
+                                 for a, b in res.spans],
+        "ate_stitched": trajectory_ate(rs_stitched, ts_stitched, gt),
+        "loop_closure": cli["loop_closure"], "landmarks": cli["landmarks"],
+        "refine_calls": len(refines),
+        "refine_prior_weight": kwargs.get("prior_weight"),
+        "refine_loop_links": len(kwargs.get("loop_links") or []),
+        "ate_before_refine": trajectory_ate(rs_in, ts_in, gt),
+        "ate_after_refine": trajectory_ate(traj["rotations"],
+                                           traj["translations"], gt),
+        "centers": len(traj["centers"]),
+        "timing": dict(frames=n, wall_ms=wall, frames_per_s=n * 1e3 / wall,
+                       wall_from="the run_sfm call, unprofiled"),
+        "refine_at_ground_truth": dict(
+            landmarks=[len(pts_k), len(pts_p)],
+            correction_plain=correction,
+            pose_max_abs_diff_kernel_vs_plain=diff,
+            ate_after=trajectory_ate(rs_k, ts_k, gt),
+            timing=refine_timing),
+        "launches": launches}
+    emit(result)
+    bad = []
+    if not edges or any(i + j != n - 1 for i, j in edges):
+        bad.append("no loop edge, or one that is not a fold pair")
+    if result["centers"] != n:
+        bad.append("not one pose a frame")
+    if len(refines) != 1:
+        bad.append("the cross-seam refine did not run once")
+    if not min(len(pts_k), len(pts_p)) > SUBMAP_REFINE_MIN_LANDMARKS:
+        bad.append("the refine at the ground truth kept too few landmarks")
+    if not diff <= SUBMAP_REFINE_POSE_SHARE * correction:
+        bad.append("refine poses differ kernel vs plain")
+    if bad:
+        raise AssertionError(f"submaps out of bounds: {bad}")
+    return launches
+
+
+def yaw_deg(r_first, r_last) -> float:
+    """The yaw (degrees, about the camera's y axis) that turns a camera
+    from world->camera rotation ``r_first`` to ``r_last``."""
+    rel = np.asarray(r_last, np.float64) @ np.asarray(r_first, np.float64).T
+    return float(np.degrees(np.arctan2(rel[0, 2], rel[0, 0])))
+
+
+def drive_pyramid(dev, seq, k, centers, counters, single_scale):
+    """The pyramid phase: ``run_incremental_sfm_robust(restarts=3)`` on the
+    12-frame pan with ``pyramid_octaves=PYRAMID_OCTAVES`` (run_sfm's track
+    capacity 1024 x octaves), launches counted (FAST and BRIEF once an
+    octave a restart); the pyramid frontend's features with the kernels
+    identical to the plain ones; ATE < 0.2 and > 80 landmarks (reported
+    beside the single-scale sfm phase's); then one
+    ``run_incremental_sfm`` timed: wall from one call, busy time from a
+    second under the profiler."""
+    import torch
+
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        make_pairs, precompute_frontend,
+    )
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm, run_incremental_sfm_robust,
+    )
+    from photogrammetry_tpu_torch.sfm.metrics import trajectory_ate
+
+    cfg = SfmConfig(collect_diagnostics=False,
+                    pyramid_octaves=PYRAMID_OCTAVES,
+                    track_capacity=1024 * PYRAMID_OCTAVES)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = run_incremental_sfm_robust(seq, k, cfg, seed=SFM_SEED, restarts=3,
+                                     device=dev)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    pairs = make_pairs(cfg.frontend, device=dev)
+    frames = torch.as_tensor(seq, dtype=torch.float32, device=dev)
+    fa, fb = (precompute_frontend(frames, pairs, cfg.frontend,
+                                  chunk=cfg.frontend_chunk,
+                                  octaves=PYRAMID_OCTAVES, plain=plain)
+              for plain in (False, True))
+
+    def once():
+        return run_incremental_sfm(seq, k, cfg, seed=SFM_SEED, device=dev)
+
+    _, timing = profiled_run(once, dev, len(seq),
+                             wall=wall_ms(once, dev))
+    per_octave = fa.points.mask.reshape(len(seq), PYRAMID_OCTAVES, -1)
+    result = {
+        "phase": "pyramid", "frames": list(seq.shape),
+        "octaves": PYRAMID_OCTAVES, "track_capacity": cfg.track_capacity,
+        "seed": SFM_SEED, "seconds": seconds,
+        "features_identical": features_equal(fa, fb),
+        "keypoints_per_octave": per_octave.sum(-1).sum(0).tolist(),
+        "ate": trajectory_ate(res.rs, res.ts, centers),
+        "landmarks": len(res.points), "quality": res.quality,
+        "centers": len(res.camera_centers),
+        "single_scale": {key: single_scale[key] for key in
+                         ("ate", "landmarks", "quality")},
+        "timing": timing, "launches": launches}
+    emit(result)
+    bad = []
+    if not result["features_identical"]:
+        bad.append("pyramid features differ kernel vs plain")
+    for name in ("fast_score", "brief_bits"):
+        if launches[name] != 3 * PYRAMID_OCTAVES:
+            bad.append(f"{name}: {launches[name]} launches, expected one "
+                       f"an octave a restart")
+    if (result["centers"] != len(seq) or not result["ate"] < 0.2
+            or result["landmarks"] <= 80):
+        bad.append("pyramid SfM out of bounds")
+    if bad:
+        raise AssertionError(f"pyramid out of bounds: {bad}")
+    return launches
+
+
+def time_new_shapes(dev, seq):
+    """timing_shapes: the kernels at the shapes the keyframe, submap and
+    pyramid paths first gave them, by CUDA-graph replay (device ms, no
+    profiler session) and CUDA events a call, beside the plain version's
+    and the library call's CUDA-event ms and the bound: FAST on the 12
+    frames' 540x960 octave, BRIEF there at the keypoints the pyramid path
+    detects on it (``detect_and_describe_batch_split`` on the octave, as
+    the path's second octave), Hamming at the pyramid's 1024 x 1024
+    (P = 256), Schur at the global BA's F = 23, T = 4096 beside the cuBLAS
+    pair."""
+    import torch
+
+    from photogrammetry_tpu_torch.kernels import fast_stencil, hamming, schur
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        _downsample2, detect_and_describe_batch_split, make_pairs,
+        precompute_frontend,
+    )
+    from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
+
+    fc = SfmConfig().frontend
+    thr = fc.detection_threshold
+    pan = torch.as_tensor(seq, dtype=torch.float32, device=dev)
+    octave = _downsample2(pan).contiguous()
+    b, h, w = octave.shape
+    pairs = make_pairs(fc, device=dev)
+    # the keypoints of the pyramid path's second octave, at its scale
+    octave_pts = detect_and_describe_batch_split(octave, pairs, fc,
+                                                 plain=True).points
+    pyr = precompute_frontend(pan[:2], pairs, fc, octaves=PYRAMID_OCTAVES,
+                              plain=True)
+    a1, a2 = pyr.bits[0].contiguous(), pyr.bits[1].contiguous()
+    m1, m2 = pyr.points.mask[0], pyr.points.mask[1]
+    n, p = a1.shape
+    f, t = 23, 4096
+    sargs = schur_inputs(dev, f, t, seed=f * t)
+    sa, sb = (x.permute(0, 2, 1, 3).reshape(6 * f, 3 * t).contiguous()
+              for x in sargs[:2])
+    sbp = sargs[2].reshape(-1)
+    rows = {
+        "fast_score_540x960_b12": dict(
+            run=lambda: fast_stencil.fast_score_map_batch(octave, thr),
+            plain=lambda: fast_stencil.fast_score_map_plain(octave, thr),
+            library=None, bytes=b * h * w * 8, ops=b * h * w * 49),
+        "brief_bits_540x960_b12": brief_row(octave, octave_pts, pairs),
+        "hamming_1024": dict(
+            run=lambda: hamming.hamming_distance_matrix(a1, a2, m1, m2),
+            plain=lambda: hamming.hamming_distance_matrix_plain(a1, a2, m1,
+                                                                m2),
+            library=lambda: torch.cdist(a1.float(), a2.float(), p=0),
+            bytes=2 * n * p + 2 * n + n * n * 4, ops=2 * n * n * p,
+            ops_per_s=INT8_OPS_PER_S),
+        "schur_F23_T4096": dict(
+            run=lambda: schur.schur_products(*sargs),
+            plain=lambda: schur.schur_products_plain(*sargs),
+            library=lambda: (torch.matmul(sa, sb.T), sa @ sbp),
+            bytes=2 * (6 * f * 3 * t) * 4 + 3 * t * 4 + (6 * f) ** 2 * 4
+            + 6 * f * 4,
+            ops=2 * (6 * f) ** 2 * 3 * t + 2 * 6 * f * 3 * t),
+    }
+    out = {}
+    for name, row in rows.items():
+        b_ms, b_by = bound_ms(row["bytes"], row["ops"],
+                              row.get("ops_per_s", FP32_OPS_PER_S))
+        out[name] = dict(
+            ms=graph_ms(row["run"]), ms_from="graph_ms",
+            call_ms=cuda_ms(row["run"]),
+            plain_ms=cuda_ms(row["plain"], iters=3),
+            plain_ms_from="call_ms", library_ms=None, bound_ms=b_ms,
+            bound_by=b_by, bytes=row["bytes"], ops=row["ops"])
+        if row["library"] is not None:
+            try:
+                out[name].update(library_ms=graph_ms(row["library"]),
+                                 library_ms_from="graph_ms")
+            except RuntimeError:        # not capturable: a call's time
+                out[name].update(library_ms=cuda_ms(row["library"]),
+                                 library_ms_from="call_ms")
+    brief = rows["brief_bits_540x960_b12"]
+    out["brief_bits_540x960_b12"].update(
+        gather_floor_ms=graph_ms(brief["floor"]),
+        distinct_pixels=brief["distinct_pixels"],
+        live_keypoints=brief["live_keypoints"])
+    out["hamming_1024"]["live_keypoints"] = [int(m1.sum()), int(m2.sum())]
+    emit({"phase": "timing_shapes", "rows": out,
+          "inputs": "hot in L2: back-to-back calls on the same operands"})
+    return out
 
 
 def time_loop(dev, loop):
@@ -1929,12 +2510,6 @@ def main() -> int:
     emit({"phase": "render", "seconds": time.perf_counter() - t0,
           "shape": list(seq.shape)})
 
-    def timed(label, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        emit({"phase_seconds": label, "seconds": time.perf_counter() - t0})
-        return out
-
     cfg = FrontendConfig(detection_threshold=50.0,
                          max_keypoints=MAX_KEYPOINTS, reduction="nms",
                          suppression_radius=4.0)
@@ -1954,7 +2529,8 @@ def main() -> int:
     out, launches_forward = timed(
         "slice", drive_main_path, dev, frames, k, r_gt, pairs, cfg,
         {n: counters[n] for n in ("fast_score", "brief_bits", "hamming")})
-    launches_sfm, _ = timed("sfm", drive_sfm, dev, seq, k, centers, earlier)
+    launches_sfm, _, sfm_stats = timed("sfm", drive_sfm, dev, seq, k,
+                                       centers, earlier)
     with tempfile.TemporaryDirectory() as cache_dir:
         captured = capture_frames(dev, seq)
         launches = timed("dewarp_sfm", drive_dewarp_sfm, dev, seq, captured,
@@ -1972,6 +2548,7 @@ def main() -> int:
                                     seq, k, centers, loop_counters, cache_dir)
         timed("checkpoint", drive_checkpoint, dev, seq, k, centers, earlier,
               cache_dir)
+        shape_rows = timed("timing_shapes", time_new_shapes, dev, seq)
         timings = timed("timing", time_all, dev, frames, seq, k, pairs, cfg,
                         out)
         remap_rows = timed("timing_remap", time_remap, dev, seq, captured,
@@ -1980,6 +2557,13 @@ def main() -> int:
         timed("timing_dewarp_sfm", time_dewarp_sfm, dev, captured, k,
               cache_dir)
         loop_rows = timed("timing_loop", time_loop, dev, loop)
+        new_paths = {
+            "keyframes": timed("keyframes", drive_keyframes, dev, seq, k,
+                               centers, earlier, cache_dir),
+            "pyramid": timed("pyramid", drive_pyramid, dev, seq, k, centers,
+                             earlier, sfm_stats),
+            "submaps": timed("submaps", drive_submaps, dev, seq, k, rs_gt,
+                             centers, earlier, cache_dir)}
     # each kernel's row is taken at the shape the dewarp + SfM path gives it
     timings["schur"] = schur_rows["F%d_T%d" % SCHUR_SHAPES[0]]
     timings["remap"] = remap_rows["stack_f32"]
@@ -1997,6 +2581,15 @@ def main() -> int:
                 "ms", "graph_ms", "call_ms", "bound_ms", "bound_by",
                 "plain_ms", "library_ms") + (
                     ("gather_floor_ms",) if n == "brief_bits" else ())})
+    # each kernel on the keyframe, submap and pyramid paths: FAST, BRIEF,
+    # Hamming and Schur launched on all three
+    missing = [(path, n) for path, got in new_paths.items()
+               for n in earlier if got.get(n, 0) < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched: {missing}")
+    new_shape = {"fast_score": "fast_score_540x960_b12",
+                 "brief_bits": "brief_bits_540x960_b12",
+                 "hamming": "hamming_1024", "schur": "schur_F23_T4096"}
     # the batched entry of the Hamming kernel: its loop-path launches and
     # its rows at F = 23 and 64
     batched = dict(entry="hamming_distance_matrix_pairs",
@@ -2026,6 +2619,10 @@ def main() -> int:
              launches_sfm=launches_sfm.get(n, 0),
              launches_pipeline=launches_pipeline.get(n, 0),
              launches_loop=launches_loop.get(n, 0),
+             **{f"launches_{path}": got.get(n, 0)
+                for path, got in new_paths.items()},
+             new_shape=(dict(row=new_shape[n], **shape_rows[new_shape[n]])
+                        if n in new_shape else None),
              **({"batched": batched} if n == "hamming" else {}))
         for n in counters]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

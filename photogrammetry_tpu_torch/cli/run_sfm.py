@@ -4,33 +4,40 @@
     python -m photogrammetry_tpu_torch.cli.run_sfm [FRAMES_DIR] \\
         [--synthetic-frames 8] [--restarts 3] [--device cuda] \\
         [--distortion-coeffs K1 K2 K3 K4 K5] [--dewarp-cache DIR] \\
-        [--oriented-brief] [--checkpoint PATH [--no-resume]] \\
+        [--oriented-brief] [--pyramid-octaves N] \\
+        [--checkpoint PATH [--no-resume]] \\
+        [--keyframe-disp PX | --submap-frames N [--submap-overlap N] ...] \\
         [--loop-closure [--loop-mode revisit] [--loop-min-gap N] ...]
 
 A directory of frames (sorted), or the built-in synthetic star pan with
 exact ground truth for an ATE report → (with ``--distortion-coeffs``) the
 lens dewarp of every frame, ``dewarp_frames`` → ``run_incremental_sfm``
 (or its best-of-``--restarts`` form; with ``--checkpoint`` a snapshotted
-run that resumes from the file) → (with ``--loop-closure``) place
-recognition over every frame pair, loop-edge measurement and the
-pose-graph correction, then the landmarks re-triangulated under the
-corrected poses → ``cloud.ply`` + ``trajectory.json`` and one JSON report
-line; ``--oriented-brief`` steers the BRIEF pairs by each keypoint's
-orientation.  The JAX CLI's other modes (submaps, keyframes, mesh,
-pyramid, precompute-matching) are not ported: their flags raise
-NotImplementedError.
+run that resumes from the file; with ``--keyframe-disp`` the map from
+displacement-gated keyframes and every other frame localized against it;
+with ``--submap-frames`` overlapping submaps stitched by similarities, a
+seam pose graph and ``--submap-refine`` rounds of cross-seam global BA) →
+(with ``--loop-closure``) place recognition over every frame pair,
+loop-edge measurement and the pose-graph correction, then the landmarks
+re-triangulated under the corrected poses (submaps: the cross-seam global
+BA runs after it instead, with the loop matches fused into its tracks) →
+``cloud.ply`` + ``trajectory.json`` and one JSON report line;
+``--oriented-brief`` steers the BRIEF pairs by each keypoint's
+orientation, ``--pyramid-octaves`` detects and describes on power-of-two
+octaves.  The JAX CLI's ``--mesh`` and ``--precompute-matching`` are not
+ported: they raise NotImplementedError.
 """
 from __future__ import annotations
 
 import argparse
 import json
+from types import SimpleNamespace
 
 from photogrammetry_tpu_torch.cli.common import load_gray
 
-NOT_PORTED = ("--submap-frames", "--submap-overlap",
-              "--submap-prior-weight", "--submap-refine", "--keyframe-disp",
-              "--mesh", "--pyramid-octaves", "--precompute-matching")
+NOT_PORTED = ("--mesh", "--precompute-matching")
 LOOP_SEED = 7   # the loop-edge measurement's draws (JAX: PRNGKey(7))
+LINK_SEED = 11  # the loop links' epipolar gate (JAX: PRNGKey(11))
 
 
 def dewarp_frames(frames, coeffs, cache_dir: str, device="cuda",
@@ -59,13 +66,46 @@ def dewarp_frames(frames, coeffs, cache_dir: str, device="cuda",
                                             dtype=torch.float32))
 
 
+def loop_links(feats, edges, cfg, device):
+    """The gated matches of each accepted loop edge as (fa, xy_a, fb,
+    xy_b) links for the cross-seam global BA: the mutual matches of the
+    edge's frames that pass a RANSAC-F gate of ``ransac_samples // 2``
+    hypotheses, drawn edge after edge from a generator seeded
+    ``LINK_SEED``."""
+    import numpy as np
+    import torch
+
+    from photogrammetry_tpu_torch.sfm.epipolar import (
+        draw_samples, ransac_fundamental,
+    )
+    from photogrammetry_tpu_torch.sfm.frontend import match_pair
+
+    gen = torch.Generator(device=device).manual_seed(LINK_SEED)
+    links = []
+    for fa, fb in edges:
+        m = match_pair(feats[fa], feats[fb], cfg.frontend)
+        gate = ransac_fundamental(
+            draw_samples(gen, m.mask, cfg.ransac_samples // 2, 8), m.xy1,
+            m.xy2, m.mask, cfg.ransac_threshold)
+        good = (m.mask & gate.inliers).cpu().numpy()
+        xy1, xy2 = m.xy1.cpu().numpy(), m.xy2.cpu().numpy()
+        links += [(fa, tuple(xy1[i]), fb, tuple(xy2[i]))
+                  for i in np.nonzero(good)[0]]
+    return links
+
+
 def close_loops_stage(frames, res, k, cfg, args, device):
     """The ``--loop-closure`` stage after the SfM run: the frames' features
-    (one batched frontend pass), ``close_loops`` on the run's trajectory,
-    then every landmark re-triangulated under the corrected poses with the
-    run's depth gate (a track whose re-triangulation fails in an observing
-    view leaves the map).  Updates ``res`` in place; returns the report's
-    ``loop_closure`` entry."""
+    (one batched single-scale frontend pass), ``close_loops`` on the run's
+    trajectory, then, where the run has one track table (the plain and
+    keyframe modes, the latter under its keyframes' poses), every landmark
+    re-triangulated under the corrected poses with the run's depth gate (a
+    track whose re-triangulation fails in an observing view leaves the
+    map).  Submap runs have a table a window instead: with
+    ``--submap-refine`` the cross-seam global BA runs on the loop-closed
+    trajectory, the loop edges' gated matches fused into its tracks, at
+    ``--submap-prior-weight``.  Updates ``res`` in place; returns the
+    report's ``loop_closure`` entry."""
     import numpy as np
     import torch
 
@@ -74,6 +114,7 @@ def close_loops_stage(frames, res, k, cfg, args, device):
     )
     from photogrammetry_tpu_torch.sfm.incremental import _depth_ok
     from photogrammetry_tpu_torch.sfm.loop_closure import close_loops
+    from photogrammetry_tpu_torch.sfm.submaps import refine_submaps_global
     from photogrammetry_tpu_torch.sfm.triangulate import triangulate_nview
 
     num = len(frames)
@@ -94,16 +135,30 @@ def close_loops_stage(frames, res, k, cfg, args, device):
         mode=args.loop_mode, max_candidates=args.loop_max_edges)
     rs_lc = torch.as_tensor(rs_lc, dtype=torch.float32, device=device)
     ts_lc = torch.as_tensor(ts_lc, dtype=torch.float32, device=device)
-    table = res.table
-    pts, depths = triangulate_nview(table.obs, table.obs_mask, rs_lc, ts_lc,
-                                    kmat)
-    has = table.has_point & _depth_ok(table.obs_mask, depths, cfg.min_depth,
-                                      cfg.max_depth)
-    res.table = table._replace(
-        points=torch.where(has[:, None], pts, table.points), has_point=has)
+    report = {"loop_edges": [list(p) for p in info["loop_edges"]],
+              "rejected_edges": len(info.get("rejected_edges", []))}
+    table = getattr(res, "table", None)
+    if table is not None:
+        # keyframe mode: the table's rows are the keyframes
+        rows = torch.as_tensor(getattr(res, "keyframes", range(num)),
+                               device=device)
+        pts, depths = triangulate_nview(table.obs, table.obs_mask,
+                                        rs_lc[rows], ts_lc[rows], kmat)
+        has = table.has_point & _depth_ok(table.obs_mask, depths,
+                                          cfg.min_depth, cfg.max_depth)
+        res.table = table._replace(
+            points=torch.where(has[:, None], pts, table.points),
+            has_point=has)
     res.rs, res.ts = rs_lc.cpu().numpy(), ts_lc.cpu().numpy()
-    return {"loop_edges": [list(p) for p in info["loop_edges"]],
-            "rejected_edges": len(info.get("rejected_edges", []))}
+    if getattr(res, "submaps", None) is not None and args.submap_refine > 0:
+        res.rs, res.ts, res.points = refine_submaps_global(
+            res.rs, res.ts, res.submaps, res.spans, k, num,
+            rounds=args.submap_refine,
+            iterations=cfg.final_ba_iterations or 20, prune_px=cfg.prune_px,
+            min_depth=cfg.min_depth, max_depth=cfg.max_depth,
+            loop_links=loop_links(feats, info["loop_edges"], cfg, device),
+            prior_weight=args.submap_prior_weight, device=device)
+    return report
 
 
 def main(argv=None) -> int:
@@ -119,6 +174,11 @@ def main(argv=None) -> int:
     ap.add_argument("--oriented-brief", action="store_true",
                     help="steered (rotation-invariant) BRIEF descriptors "
                          "in the tracking frontend (ops/brief.py)")
+    ap.add_argument("--pyramid-octaves", type=int, default=1,
+                    help=">1 runs the multi-scale pyramid frontend "
+                         "(tracking across up to ~2^(octaves-1) of "
+                         "apparent-scale change; keypoint and track "
+                         "capacity scale with octaves)")
     ap.add_argument("--frame-stride", type=int, default=1,
                     help="temporal subsampling: keep every Nth frame")
     ap.add_argument("--distortion-coeffs", type=float, nargs=5, default=None,
@@ -167,6 +227,26 @@ def main(argv=None) -> int:
                          "together; 'revisit_sim3' also measures the "
                          "relative scale at each revisit and optimizes a "
                          "Sim(3) pose graph")
+    ap.add_argument("--keyframe-disp", type=float, default=0.0,
+                    help=">0 builds the map from displacement-gated "
+                         "keyframes only (a new keyframe every N px of "
+                         "median feature motion) and localizes every "
+                         "skipped frame against it (sfm/keyframes.py)")
+    ap.add_argument("--submap-frames", type=int, default=0,
+                    help=">0 chains overlapping submaps of this many "
+                         "frames (sfm/submaps.py): track capacity scales "
+                         "with sequence length instead of one fixed table")
+    ap.add_argument("--submap-overlap", type=int, default=4)
+    ap.add_argument("--submap-prior-weight", type=float, default=100.0,
+                    help="trajectory-anchor weight of the cross-seam "
+                         "global BA that runs after loop closure (0 = pure "
+                         "reprojection); without --loop-closure the "
+                         "refine keeps refine_submaps_global's default "
+                         "300, as the JAX CLI does")
+    ap.add_argument("--submap-refine", type=int, default=2,
+                    help="cross-seam global refinement rounds after the "
+                         "pose graph (0 disables; with --loop-closure "
+                         "they run after it)")
     args, rest = ap.parse_known_args(argv)
     for arg in rest:
         if arg.split("=")[0] in NOT_PORTED:
@@ -178,6 +258,10 @@ def main(argv=None) -> int:
     if args.restarts > 1 and args.checkpoint:
         ap.error("--restarts and --checkpoint conflict: restart selection "
                  "re-runs from scratch and cannot resume a snapshot")
+    if args.checkpoint and (args.keyframe_disp > 0 or args.submap_frames > 0):
+        ap.error("--checkpoint is only supported in the plain incremental "
+                 "mode: --keyframe-disp and --submap-frames runs take no "
+                 "snapshots (their state spans multiple sub-reconstructions)")
 
     import numpy as np
     import torch
@@ -230,13 +314,39 @@ def main(argv=None) -> int:
         cy = args.cy if args.cy is not None else h / 2
         k = np.array([[fx, 0, cx], [0, fx, cy], [0, 0, 1]], np.float32)
 
+    octaves = max(1, args.pyramid_octaves)
     cfg = SfmConfig(frontend=FrontendConfig(
         detection_threshold=args.detection_threshold, max_keypoints=512,
         reduction="nms", suppression_radius=4.0, hamming_threshold=80,
         oriented_brief=bool(args.oriented_brief)),
-        track_capacity=1024, collect_diagnostics=bool(args.diagnostics))
+        pyramid_octaves=octaves,
+        # headroom for the octave-merged keypoint sets
+        track_capacity=1024 * octaves,
+        collect_diagnostics=bool(args.diagnostics))
     with timer.stage("sfm"):
-        if args.restarts > 1:
+        if args.keyframe_disp > 0:
+            from photogrammetry_tpu_torch.sfm.keyframes import (
+                run_keyframed_sfm,
+            )
+
+            rs_kf, ts_kf, kf_idx, res, _ = run_keyframed_sfm(
+                frames, k, cfg, min_disp_px=args.keyframe_disp,
+                restarts=max(1, args.restarts), device=device)
+            # the full per-frame trajectory replaces the keyframe-only one
+            res.rs, res.ts = rs_kf, ts_kf
+            res.keyframes = kf_idx
+        elif args.submap_frames > 0:
+            from photogrammetry_tpu_torch.sfm.submaps import run_submap_sfm
+
+            # with loop closure the cross-seam global BA waits for the
+            # loop-closed trajectory (close_loops_stage)
+            res = run_submap_sfm(
+                frames, k, cfg, submap_frames=args.submap_frames,
+                overlap=args.submap_overlap, restarts=max(1, args.restarts),
+                global_refine_rounds=(0 if args.loop_closure
+                                      else args.submap_refine),
+                device=device)
+        elif args.restarts > 1:
             res = run_incremental_sfm_robust(frames, k, cfg,
                                              restarts=args.restarts,
                                              device=device)
@@ -254,12 +364,27 @@ def main(argv=None) -> int:
     centers = res.camera_centers
     traj = {"centers": centers.tolist(), "rotations": res.rs.tolist(),
             "translations": res.ts.tolist()}
-    support, med = reconstruction_quality(res, k)
+    costs = getattr(res, "costs", None)
     report = {"frames": len(frames), "landmarks": len(res.points),
-              "final_cost": res.costs[-1] if res.costs else None,
-              "timings": timer.summary(),
-              "quality": {"support": support,
-                          "median_reproj_px": round(med, 3)}}
+              "final_cost": costs[-1] if costs else None,
+              "timings": timer.summary()}
+    # ground-truth-free quality (support, median reprojection error px),
+    # where one table holds the run: in keyframe mode its rows are the
+    # keyframes
+    table = getattr(res, "table", None)
+    if table is not None:
+        rows = list(getattr(res, "keyframes", range(len(res.rs))))
+        support, med = reconstruction_quality(
+            SimpleNamespace(rs=res.rs[rows], ts=res.ts[rows], table=table),
+            k)
+        report["quality"] = {"support": support,
+                             "median_reproj_px": round(med, 3)}
+    if hasattr(res, "spans"):
+        report["submaps"] = {"spans": [list(sp) for sp in res.spans],
+                             "total_tracks": res.total_tracks,
+                             "dropped": res.dropped}
+    if hasattr(res, "keyframes"):
+        report["keyframes"] = list(res.keyframes)
     if loop_report is not None:
         report["loop_closure"] = loop_report
     if gt_centers is not None:

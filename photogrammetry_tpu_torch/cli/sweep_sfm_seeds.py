@@ -8,7 +8,8 @@ are noisy; accuracy is judged on the across-seed distribution.  Usage:
         [--frames 8] [--seeds 20] [--size 480 640] [--focal 520] \\
         [--restarts 1] [--device cuda] [--plain] \\
         [--distortion-coeffs K1 K2 K3 K4 K5] \\
-        [--out-and-back] [--loop-mode revisit]
+        [--out-and-back] [--loop-mode revisit] \\
+        [--pyramid-octaves 2] [--keyframe-disp PX]
 
 With ``--distortion-coeffs`` the rendered frames are first barrel-distorted
 with the synthetic map (what a camera with that lens would capture) and
@@ -18,7 +19,10 @@ dewarp + SfM path.  ``--plain`` runs the kernels' plain versions.
 the same as frame 2F - 2 - j: every frame revisited), and ``--loop-mode``
 runs ``close_loops`` in that mode after each run (``run_sfm
 --loop-closure``'s minimum gap max(5, F // 4) and draws seeded 7) and
-reports the ATE after it beside the ATE before.
+reports the ATE after it beside the ATE before.  ``--pyramid-octaves``
+runs the pyramid frontend (``run_sfm``'s track capacity 1024 x octaves);
+``--keyframe-disp`` runs ``run_keyframed_sfm`` (the full trajectory's ATE,
+and the keyframe map's as ``ate_keyframes``).
 
 Prints one JSON line per seed (ATE, landmarks, support, median
 reprojection error) and a summary line: mean / p90 / max ATE and the share
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from types import SimpleNamespace
 
 
 def main(argv=None) -> int:
@@ -51,6 +56,10 @@ def main(argv=None) -> int:
                          "dewarp them in front of the SfM run")
     ap.add_argument("--out-and-back", action="store_true",
                     help="traverse the pan out and back (2F - 1 frames)")
+    ap.add_argument("--pyramid-octaves", type=int, default=1,
+                    help="run the pyramid frontend on this many octaves")
+    ap.add_argument("--keyframe-disp", type=float, default=0.0,
+                    help=">0 runs the keyframed SfM at this gate (px)")
     ap.add_argument("--loop-mode", default=None,
                     choices=("rotation", "essential", "revisit",
                              "revisit_sim3"),
@@ -91,7 +100,9 @@ def main(argv=None) -> int:
             frames = dewarp_frames(captured[..., 0].cpu().numpy(),
                                    args.distortion_coeffs, cache_dir,
                                    args.device, plain=args.plain)
-    cfg = SfmConfig(collect_diagnostics=False)
+    octaves = max(1, args.pyramid_octaves)
+    cfg = SfmConfig(collect_diagnostics=False, pyramid_octaves=octaves,
+                    track_capacity=1024 * octaves)
 
     feats = None
     if args.loop_mode is not None:
@@ -107,15 +118,34 @@ def main(argv=None) -> int:
         feats = [frame_features(stacked, t) for t in range(len(frames))]
     rows = []
     for seed in range(args.seeds):
-        res = run_incremental_sfm_robust(frames, scene["k"], cfg,
-                                         seed=seed, restarts=args.restarts,
-                                         device=args.device,
-                                         plain=args.plain)
-        support, med = reconstruction_quality(res, scene["k"])
+        extra = {}
+        if args.keyframe_disp > 0:
+            from photogrammetry_tpu_torch.sfm.keyframes import (
+                run_keyframed_sfm,
+            )
+
+            rs, ts, keyframes, res, info = run_keyframed_sfm(
+                frames, scene["k"], cfg, min_disp_px=args.keyframe_disp,
+                seed=seed, restarts=args.restarts, device=args.device,
+                plain=args.plain)
+            extra = dict(keyframes=keyframes,
+                         ate_keyframes=trajectory_ate(
+                             res.rs, res.ts, centers[keyframes]),
+                         fallbacks=sum(bool(i.get("fallback"))
+                                       for i in info))
+            res.rs, res.ts = rs, ts
+            support, med = reconstruction_quality(
+                SimpleNamespace(rs=rs[keyframes], ts=ts[keyframes],
+                                table=res.table), scene["k"])
+        else:
+            res = run_incremental_sfm_robust(
+                frames, scene["k"], cfg, seed=seed, restarts=args.restarts,
+                device=args.device, plain=args.plain)
+            support, med = reconstruction_quality(res, scene["k"])
         rows.append(dict(seed=seed,
                          ate=trajectory_ate(res.rs, res.ts, centers),
                          landmarks=len(res.points), support=support,
-                         median_px=med))
+                         median_px=med, **extra))
         if feats is not None:
             from photogrammetry_tpu_torch.cli.run_sfm import LOOP_SEED
             from photogrammetry_tpu_torch.sfm.loop_closure import (
@@ -148,6 +178,7 @@ def main(argv=None) -> int:
         "seeds": args.seeds, "restarts": args.restarts,
         "device": args.device, "plain": args.plain,
         "distortion_coeffs": args.distortion_coeffs,
+        "pyramid_octaves": octaves, "keyframe_disp": args.keyframe_disp,
         "mean": float(ates.mean()),
         "p90": float(np.percentile(ates, 90)), "max": float(ates.max()),
         "within_bounds": float(np.mean([r["ate"] < 0.2

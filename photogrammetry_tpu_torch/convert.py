@@ -7,7 +7,7 @@ state is the track table and the BA state of a reconstruction.
 (``np.asarray(make_pairs(cfg))``, ``dataclasses.asdict(cfg)``);
 ``state_from_jax`` takes a JAX ``TrackTable`` / ``BAState`` /
 ``BAProblem`` / ``PoseGraph`` / ``PoseGraphSim3`` and reads its leaves
-with ``np.asarray``.  The dewarp slice
+with ``np.asarray``; ``sfm_result_from_jax`` a whole JAX ``SfmResult``.  The dewarp slice
 has no trained state either: what it carries across is the distortion map
 (``distortion_map_from_jax``) and the (5,) coefficient vector, a plain list
 of floats.  So this module needs no JAX.
@@ -22,15 +22,14 @@ import torch
 from photogrammetry_tpu_torch import resolve_device
 from photogrammetry_tpu_torch.sfm.ba import BAProblem, BAState
 from photogrammetry_tpu_torch.sfm.frontend import FrontendConfig
-from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
+from photogrammetry_tpu_torch.sfm.incremental import SfmConfig, SfmResult
 from photogrammetry_tpu_torch.sfm.pose_graph import PoseGraph, PoseGraphSim3
 from photogrammetry_tpu_torch.sfm.tracks import TrackTable
 
 JAX_ONLY_KEYS = ("use_pallas_matching", "use_pallas_detect")
 # JAX SfmConfig fields the port leaves out, with their "off" values
 JAX_ONLY_SFM = {"mesh": (None,), "fused_steady_steps": (None, False),
-                "read_free": (False,), "precompute_matching": (False,),
-                "pyramid_octaves": (1,)}
+                "read_free": (False,), "precompute_matching": (False,)}
 STATE_TYPES = {cls.__name__: cls for cls in (TrackTable, BAState, BAProblem,
                                               PoseGraph, PoseGraphSim3)}
 
@@ -64,8 +63,8 @@ def from_jax(pairs: np.ndarray, k: np.ndarray, config: dict, device="cuda"):
     """→ (pairs (P, 2, 2) int32 tensor, K (3, 3) float32 tensor, config) on
     ``device``.  ``config`` is ``dataclasses.asdict`` of a JAX
     FrontendConfig (→ FrontendConfig, the ``use_pallas_*`` keys dropped)
-    or of a JAX SfmConfig (→ SfmConfig, its TPU-dispatch, mesh and pyramid
-    fields dropped, NotImplementedError when one of them is on)."""
+    or of a JAX SfmConfig (→ SfmConfig, its TPU-dispatch and mesh fields
+    dropped, NotImplementedError when one of them is on)."""
     dev = resolve_device(device)
     cfg = (_sfm_config(config) if "frontend" in config
            else _frontend_config(config))
@@ -86,6 +85,20 @@ def state_from_jax(state, device="cuda"):
                         f"{', '.join(STATE_TYPES)}: {type(state).__name__}")
     dev = resolve_device(device)
     return cls(*(torch.from_numpy(np.array(x)).to(dev) for x in state))
+
+
+def sfm_result_from_jax(res, device="cuda") -> SfmResult:
+    """A JAX ``SfmResult`` → the port's: rs and ts as float32 arrays, the
+    ``TrackTable`` on ``device`` (``state_from_jax``), the costs and frame
+    info, and ``quality`` (support, median px) where the robust run set
+    it."""
+    out = SfmResult(np.asarray(res.rs, np.float32),
+                    np.asarray(res.ts, np.float32),
+                    state_from_jax(res.table, device=device),
+                    [float(c) for c in res.costs], list(res.frame_info))
+    if hasattr(res, "quality"):
+        out.quality = tuple(res.quality)
+    return out
 
 
 def distortion_map_from_jax(dist_map, device="cuda") -> torch.Tensor:

@@ -2,7 +2,9 @@
 of photogrammetry_tpu/sfm/frontend.py).
 
   detect_and_describe: grayscale image → (keypoints, descriptor bits, xy)
+  detect_and_describe_pyramid: the same on power-of-two octaves, merged
   precompute_frontend: (F, H, W) sequence → the same with a leading F axis
+                       (``octaves`` > 1: the batched pyramid)
   match_pair:          two described frames → (xy1, xy2, mask)
 
 The three hot steps go through the hand-written kernels of ``kernels/``
@@ -172,23 +174,96 @@ def _cat(batches) -> DescribedFrame:
                           xy=cols[5])
 
 
+def _downsample2(gray: torch.Tensor) -> torch.Tensor:
+    """2x2 average-pool downsample of (..., H, W) (an odd last row or
+    column is cropped), summed in the JAX package's order."""
+    h2, w2 = gray.shape[-2] // 2, gray.shape[-1] // 2
+    g = gray[..., :h2 * 2, :w2 * 2]
+    return (g[..., 0::2, 0::2] + g[..., 0::2, 1::2] + g[..., 1::2, 0::2]
+            + g[..., 1::2, 1::2]) * 0.25
+
+
+def _to_octave0(f: DescribedFrame, o: int) -> DescribedFrame:
+    """Octave ``o``'s keypoints in octave-0 pixels: the 2x2 average pool
+    centres octave-o pixel p at 2^o p + (2^(o-1) - 0.5); integer coords
+    rounded half to even (``jnp.rint``)."""
+    off = (2.0 ** (o - 1) - 0.5) if o > 0 else 0.0
+    scale = float(2 ** o)
+    coords = torch.round(f.points.coords.to(torch.float32) * scale
+                         + off).to(torch.int32)
+    return DescribedFrame(points=f.points._replace(coords=coords),
+                          bits=f.bits, xy=f.xy * scale + off)
+
+
+def _merge_octaves(frames, dim: int) -> DescribedFrame:
+    """Octaves' DescribedFrames concatenated along the keypoint axis
+    ``dim``; the count recomputed from the merged mask."""
+    def cat(get):
+        return torch.cat([get(f) for f in frames], dim=dim)
+
+    mask = cat(lambda f: f.points.mask)
+    pts = PaddedPoints(coords=cat(lambda f: f.points.coords),
+                       score=cat(lambda f: f.points.score), mask=mask,
+                       count=mask.sum(dim).to(torch.int32))
+    return DescribedFrame(points=pts, bits=cat(lambda f: f.bits),
+                          xy=cat(lambda f: f.xy))
+
+
+def detect_and_describe_pyramid(gray: torch.Tensor, pairs: torch.Tensor,
+                                config: FrontendConfig, octaves: int = 3,
+                                plain: bool = False) -> DescribedFrame:
+    """Multi-scale frontend: detect + describe on ``octaves`` power-of-two
+    scales of one (H, W) frame, merged into one DescribedFrame of
+    octaves x max_keypoints slots with coordinates in octave-0 pixels.
+    Features match across views whose apparent scale differs by up to
+    ~2^(octaves-1)."""
+    frames = []
+    img = gray
+    for o in range(octaves):
+        frames.append(_to_octave0(detect_and_describe(img, pairs, config,
+                                                      plain), o))
+        if o + 1 < octaves:
+            img = _downsample2(img)
+    return _merge_octaves(frames, dim=0)
+
+
+def detect_and_describe_batch_pyramid(grays: torch.Tensor,
+                                      pairs: torch.Tensor,
+                                      config: FrontendConfig, octaves: int,
+                                      plain: bool = False) -> DescribedFrame:
+    """The batch form of ``detect_and_describe_pyramid``: (B, H, W) frames,
+    one batched pass (``detect_and_describe_batch_split``: one FAST and
+    one BRIEF launch) per octave, merged along the keypoint axis."""
+    frames = []
+    img = grays
+    for o in range(octaves):
+        frames.append(_to_octave0(detect_and_describe_batch_split(
+            img, pairs, config, plain), o))
+        if o + 1 < octaves:
+            img = _downsample2(img)
+    return _merge_octaves(frames, dim=1)
+
+
 def precompute_frontend(frames: torch.Tensor, pairs: torch.Tensor,
                         config: FrontendConfig, chunk: int = 16,
                         octaves: int = 1,
                         plain: bool = False) -> DescribedFrame:
     """Whole-sequence frontend: (F, H, W) frames → DescribedFrame with a
     leading F axis on every leaf, ``chunk`` frames per batched pass
-    (``detect_and_describe_batch_split``).  Unlike the JAX package, the
+    (``detect_and_describe_batch_split``; ``octaves`` > 1: the pyramid,
+    octaves x max_keypoints slots a frame).  Unlike the JAX package, the
     tail chunk is not padded to the full size: nothing is compiled per
     shape here.  Index frame t with ``frame_features(feats, t)``."""
-    if octaves > 1:
-        raise NotImplementedError("the pyramid frontend (octaves > 1) is "
-                                  "not ported yet")
     f = frames.shape[0]
     chunk = max(1, min(chunk, f))
-    return _cat([detect_and_describe_batch_split(frames[s:s + chunk], pairs,
-                                                 config, plain)
-                 for s in range(0, f, chunk)])
+
+    def describe(blk):
+        if octaves > 1:
+            return detect_and_describe_batch_pyramid(blk, pairs, config,
+                                                     octaves, plain)
+        return detect_and_describe_batch_split(blk, pairs, config, plain)
+
+    return _cat([describe(frames[s:s + chunk]) for s in range(0, f, chunk)])
 
 
 def frame_features(feats: DescribedFrame, t: int) -> DescribedFrame:

@@ -31,8 +31,7 @@ included, and a rerun resumes after the snapshot's frame.
 Left out of the port (the JAX package's workarounds for TPU dispatch
 cost, and its distributed mode): ``precompute_matching``,
 ``fused_steady_steps`` / ``run_incremental_sfm_fused``, ``read_free``,
-``export=False`` / ``DeviceSfmResult``, ``mesh`` and
-``pyramid_octaves > 1``.
+``export=False`` / ``DeviceSfmResult`` and ``mesh``.
 """
 from __future__ import annotations
 
@@ -71,9 +70,9 @@ from photogrammetry_tpu_torch.utils.reductions import nanmedian
 
 @dataclass(frozen=True)
 class SfmConfig:
-    """The JAX SfmConfig without its TPU-dispatch, distributed and pyramid
-    fields (see the module docstring); the field comments of the JAX
-    package hold for the rest."""
+    """The JAX SfmConfig without its TPU-dispatch and distributed fields
+    (see the module docstring); the field comments of the JAX package hold
+    for the rest."""
     frontend: FrontendConfig = FrontendConfig(
         suppression_radius=4.0, hamming_threshold=80, max_keypoints=512,
         detection_threshold=20.0)
@@ -103,6 +102,10 @@ class SfmConfig:
     prune_px: float = 3.0         # reprojection-error observation pruning
     collect_diagnostics: bool = True
     frontend_chunk: int = 16
+    # > 1: the pyramid frontend (frontend.detect_and_describe_*_pyramid);
+    # keypoint capacity becomes octaves x frontend.max_keypoints, so scale
+    # track_capacity with it
+    pyramid_octaves: int = 1
 
 
 def _set_row(x: torch.Tensor, i, v) -> torch.Tensor:
@@ -419,15 +422,17 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
     frames_t = torch.as_tensor(frames, dtype=torch.float32,
                                device=dev).contiguous()
 
+    octaves = max(1, config.pyramid_octaves)
     table = make_track_table(num_frames, config.track_capacity,
-                             fc.max_keypoints, device=dev)
+                             fc.max_keypoints * octaves, device=dev)
     rs = torch.eye(3, device=dev).repeat(num_frames, 1, 1)
     ts = torch.zeros((num_frames, 3), device=dev)
     costs = []
     frame_info = []
     start_frame = 1
     feats = precompute_frontend(frames_t, pairs, fc,
-                                chunk=config.frontend_chunk, plain=plain)
+                                chunk=config.frontend_chunk, octaves=octaves,
+                                plain=plain)
     if checkpoint_path and resume and os.path.isfile(checkpoint_path):
         rs, ts, table, done, _ = load_checkpoint(checkpoint_path, device=dev)
         rs, ts, table = _fit_frames(rs, ts, table, num_frames)

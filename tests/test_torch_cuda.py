@@ -424,9 +424,10 @@ def test_schur_kernel_within_bound(dev):
 
 # one camera, a ragged camera tile with odd T (camera rows 8-byte aligned
 # only), one landmark (fewer than any split), no landmark, a ragged last
-# tile, and the two main shapes
+# tile, the two main shapes and the submap path's global BA
 @pytest.mark.parametrize("f,t", [(1, 1024), (17, 701), (12, 1), (3, 0),
-                                 (6, 2000), (12, 1024), (16, 4096)])
+                                 (6, 2000), (12, 1024), (16, 4096),
+                                 (23, 4096)])
 def test_schur_kernel_shapes(dev, f, t):
     args = _schur_args(dev, f, t, seed=f + t)
     got = schur.schur_products(*args)
@@ -540,3 +541,143 @@ def test_applier_any_real_dtype(dev, dtype):
     assert got.dtype == dtype
     ref = make_distortion_applier(dmap, (h, w), device=dev, plain=True)(imgs)
     assert torch.equal(got, ref)
+
+
+# ---------------------------------------- keyframes, submaps, pyramid
+
+
+def _small_pan():
+    """tests/test_keyframes.py's 12-frame 240x320 pan."""
+    from photogrammetry_tpu_torch.synth.star_scene import (
+        StarSceneConfig, generate_sequence,
+    )
+
+    return generate_sequence(StarSceneConfig(
+        num_frames=12, image_size=(240, 320), focal=260.0, supersample=1))
+
+
+def _same_features(a, b):
+    return all(torch.equal(x, y) for x, y in
+               zip([*a.points, a.bits, a.xy], [*b.points, b.bits, b.xy]))
+
+
+@pytest.mark.parametrize("octaves", [1, 2])
+def test_fast_and_brief_kernels_on_the_octaves(dev, octaves):
+    """The pyramid's 540x960 and 270x480 octaves of two 1080p noise
+    frames: FAST and BRIEF (512 keypoints a frame) bit-exact."""
+    from photogrammetry_tpu_torch.ops.fast import extract_keypoints
+    from photogrammetry_tpu_torch.sfm.frontend import _downsample2
+
+    rng = np.random.default_rng(octaves)
+    img = torch.tensor(rng.integers(0, 256, (2, 1080, 1920)),
+                       dtype=torch.float32, device=dev)
+    for _ in range(octaves):
+        img = _downsample2(img)
+    got = fast_stencil.fast_score_map_batch(img, 20.0)
+    ref = fast_stencil.fast_score_map_plain(img, 20.0)
+    assert torch.equal(got, ref) and int((ref > 0).sum()) > 0
+    pts = [extract_keypoints(x, 512) for x in ref]
+    coords = torch.stack([p.coords for p in pts])
+    mask = torch.stack([p.mask for p in pts])
+    pairs = torch.tensor(np.rint(rng.normal(0, 20, (256, 2, 2))),
+                         dtype=torch.int32, device=dev)
+    assert torch.equal(brief_pack.brief_bits(img, coords, pairs, mask),
+                       brief_pack.brief_bits_plain(img, coords, pairs, mask))
+
+
+def test_hamming_kernel_at_the_pyramid_shape(dev):
+    """Two octaves of 512 keypoints merged: 1024 x 1024 at P = 256."""
+    a, b = _bits(dev, 1024, 256, 41), _bits(dev, 1024, 256, 42)
+    ma, mb = _masks(dev, 1024, 1024, 43)
+    assert torch.equal(hamming.hamming_distance_matrix(a, b, ma, mb),
+                       hamming.hamming_distance_matrix_plain(a, b, ma, mb))
+
+
+@pytest.mark.parametrize("octaves", [2, 3])
+def test_pyramid_frontend_kernel_vs_plain(dev, octaves):
+    """precompute_frontend(octaves) with the kernels equals its plain run;
+    FAST and BRIEF launch once an octave a chunk."""
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        FrontendConfig, make_pairs, precompute_frontend,
+    )
+
+    frames = torch.tensor(_small_pan()["frames"], dtype=torch.float32,
+                          device=dev)
+    fc = FrontendConfig(detection_threshold=20.0, max_keypoints=256,
+                        suppression_radius=4.0, hamming_threshold=80)
+    pairs = make_pairs(fc, device=dev)
+    before = (fast_stencil.fast_score_map_batch.launches,
+              brief_pack.brief_bits.launches)
+    got = precompute_frontend(frames, pairs, fc, chunk=8, octaves=octaves)
+    torch.cuda.synchronize()
+    assert fast_stencil.fast_score_map_batch.launches == \
+        before[0] + 2 * octaves
+    assert brief_pack.brief_bits.launches == before[1] + 2 * octaves
+    ref = precompute_frontend(frames, pairs, fc, chunk=8, octaves=octaves,
+                              plain=True)
+    assert got.bits.shape[:2] == (12, octaves * 256)
+    assert _same_features(got, ref)
+
+
+def test_keyframes_kernel_vs_plain(dev):
+    """select_keyframes with the kernels equals its plain run (list and
+    features); run_keyframed_sfm poses every frame; on its map,
+    localize_nonkeyframes takes the same path a frame with the kernels
+    and plain, poses within 1e-4."""
+    from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
+    from photogrammetry_tpu_torch.sfm.keyframes import (
+        localize_nonkeyframes, run_keyframed_sfm, select_keyframes,
+    )
+
+    scene = _small_pan()
+    frames, k = scene["frames"], scene["k"]
+    cfg = SfmConfig(collect_diagnostics=False)
+    kfs, feats = select_keyframes(frames, cfg, 20.0, device=dev)
+    kfs_p, feats_p = select_keyframes(frames, cfg, 20.0, device=dev,
+                                      plain=True)
+    assert kfs == kfs_p and kfs[0] == 0 and kfs[-1] == 11
+    assert all(_same_features(a, b) for a, b in zip(feats, feats_p))
+    before = schur.schur_products.launches
+    rs, ts, kfs_r, res, info = run_keyframed_sfm(frames, k, cfg,
+                                                 min_disp_px=20.0,
+                                                 device=dev)
+    assert kfs_r == kfs and rs.shape == (12, 3, 3)
+    assert np.isfinite(rs).all() and np.isfinite(ts).all()
+    assert schur.schur_products.launches > before
+    out = [localize_nonkeyframes(frames, kfs, feats, res, k, cfg,
+                                 device=dev, plain=plain)
+           for plain in (False, True)]
+    assert [i.get("path") for i in out[0][2]] == \
+        [i.get("path") for i in out[1][2]]
+    assert np.abs(out[0][0] - out[1][0]).max() < 1e-4
+    assert np.abs(out[0][1] - out[1][1]).max() < 1e-4
+
+
+def test_submaps_kernel_vs_plain(dev):
+    """run_submap_sfm on the card (spans (0, 8) and (5, 12), one refine
+    round): a pose a frame, nothing dropped, the Schur kernel launched;
+    refine_submaps_global with the kernels against plain on the run's own
+    windows and poses, within 5% of the correction the plain refine
+    makes (the share chip_smoke.py holds it to)."""
+    from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
+    from photogrammetry_tpu_torch.sfm.submaps import (
+        refine_submaps_global, run_submap_sfm,
+    )
+
+    scene = _small_pan()
+    frames, k = scene["frames"], scene["k"]
+    cfg = SfmConfig(collect_diagnostics=False)
+    before = schur.schur_products.launches
+    res = run_submap_sfm(frames, k, cfg, submap_frames=8, overlap=3,
+                         restarts=1, global_refine_rounds=1, device=dev)
+    assert res.spans == [(0, 8), (5, 12)] and res.dropped == 0
+    assert res.rs.shape == (12, 3, 3) and np.isfinite(res.rs).all()
+    assert schur.schur_products.launches > before
+    out = [refine_submaps_global(res.rs, res.ts, res.submaps, res.spans, k,
+                                 12, rounds=1, device=dev, plain=plain)
+           for plain in (False, True)]
+    correction = max(np.abs(out[1][0] - res.rs).max(),
+                     np.abs(out[1][1] - res.ts).max())
+    diff = max(np.abs(out[0][0] - out[1][0]).max(),
+               np.abs(out[0][1] - out[1][1]).max())
+    assert diff <= 0.05 * correction

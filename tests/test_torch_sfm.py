@@ -235,8 +235,13 @@ def test_precompute_frontend_matches_jax():
     one = frame_features(got, 3)
     assert torch.equal(one.bits, got.bits[3])
     assert torch.equal(one.points.count, got.points.count[3])
-    with pytest.raises(NotImplementedError):
-        precompute_frontend(torch.tensor(frames), pairs, cfg, octaves=2)
+    # the pyramid (tests/test_torch_pyramid.py holds it in full)
+    two = precompute_frontend(torch.tensor(frames), pairs, cfg, chunk=2,
+                              octaves=2)
+    ref2 = jax_precompute(jnp.asarray(frames), pairs_np, jcfg, chunk=2,
+                          octaves=2)
+    assert two.bits.shape[:2] == (5, 2 * jcfg.max_keypoints)
+    np.testing.assert_array_equal(two.bits.numpy(), np.asarray(ref2.bits))
 
 
 def _ate(centers, gt):
@@ -319,8 +324,8 @@ def test_run_sfm_cli_frames_dir_and_unported_flags(tmp_path, pan):
     assert cloud.exists()
     gray = run_sfm.load_gray(str(tmp_path / "f00.png"))
     np.testing.assert_array_equal(gray, pan["frames"][0].astype(np.float32))
-    for flag in (["--keyframe-disp", "5"], ["--mesh", "2"],
-                 ["--submap-frames=18"]):
+    for flag in (["--mesh", "2"], ["--precompute-matching"],
+                 ["--mesh=2"]):
         with pytest.raises(NotImplementedError, match=flag[0].split("=")[0]):
             run_sfm.main(["--device", "cpu", *flag])
 
