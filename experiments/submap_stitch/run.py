@@ -23,8 +23,9 @@ line:
   same windows: the stitched ATE and the largest pose difference from the
   port's stitch, with and without the seam pose graph.
 
-``--pairs jax`` gives the port the JAX package's BRIEF pair table (its
-``make_pairs`` draws its own from a torch generator).  ``--window I``
+``--pairs jax`` gives the port the JAX package's BRIEF pair table as
+JAX draws it; the port's ``make_pairs`` now draws the same table, so
+the two choices agree.  ``--window I``
 prints instead, for each seed, one ``run_incremental_sfm`` on window I's
 frames in each package: the yaw from its first camera to its last beside
 the truth's, and ``reconstruction_quality`` (support, median px), by

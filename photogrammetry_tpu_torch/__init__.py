@@ -8,8 +8,10 @@ never JAX and never the JAX package.
 Layer map (bottom-up), as far as the port reaches:
   core/     — pinhole camera helpers, SO(3)/SE(3) exp and log (lie), the
               closed-form cubic solver of the dewarp (cubic)
-  ops/      — dense static-shape image ops, plain PyTorch: FAST, NMS,
-              BRIEF, refine, Hamming matching, grayscale, the distortion
+  ops/      — dense static-shape image ops, plain PyTorch: FAST, NMS
+              (sequential, fixed point, ANMS), clustering (grid and
+              exact), BRIEF, refine, Hamming matching (mutual nearest,
+              sorted, greedy, the motion filter), grayscale, the distortion
               maps and the plain remap (dewarp), plumb-line lens
               calibration (calibrate)
   kernels/  — hand-written CUDA kernels for Hopper (csrc/*.cu: FAST, BRIEF,
@@ -28,10 +30,13 @@ Layer map (bottom-up), as far as the port reaches:
   synth/    — synthetic ground-truth star scenes: pan, orbit, dolly and
               roll trajectories (numpy)
   utils/    — padding container, stage timer and stats log, JAX-semantics
-              reductions
+              reductions, JAX's threefry stream in numpy (prng: the BRIEF
+              pair table)
   cli/      — run_sfm (with the dewarp stage, checkpoints and loop
               closure), de_warp, pipeline_demo,
-              calibrate_dewarp, sweep_sfm_seeds
+              calibrate_dewarp, sweep_sfm_seeds, and the two-image tools
+              detect_features, cluster_features, match_keypoints,
+              estimate_pose, image_editing
   entry / convert — the two-view forward step; carrying the JAX package's
               pairs, configuration, state and distortion maps across
 

@@ -64,7 +64,7 @@ def build_pipeline(coeffs, threshold: float, suppression_radius: float,
 
     def detect(gray):
         score = score_fn(gray.contiguous(), float(threshold))
-        return extract_keypoints(score, max_keypoints)
+        return extract_keypoints(score, max_keypoints, order="score")
 
     def draw(points, dewarped):
         coords = points.coords[points.mask].cpu().numpy()

@@ -1,7 +1,8 @@
 """Carry the JAX package's state into the port.
 
 This system's "weights" are the BRIEF pair table (drawn from ``jax.random``
-by the JAX ``make_pairs``), the intrinsics K and the configuration; its
+by the JAX ``make_pairs``; the port's ``make_pairs`` draws the same table
+from the same seed), the intrinsics K and the configuration; its
 state is the track table and the BA state of a reconstruction.
 ``from_jax`` takes the first as plain numpy arrays and a dict
 (``np.asarray(make_pairs(cfg))``, ``dataclasses.asdict(cfg)``);

@@ -12,24 +12,29 @@ runs this function only for tensors on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from photogrammetry_tpu_torch import resolve_device
 from photogrammetry_tpu_torch.ops.refine import _box_filter
+from photogrammetry_tpu_torch.utils import prng
 
 NUM_PAIRS = 256
 DEFAULT_SIGMA = 50.0
 ORIENTATION_RADIUS = 15
 
 
-def gaussian_pairs(generator: torch.Generator, sigma: float = DEFAULT_SIGMA,
-                   num_pairs: int = NUM_PAIRS) -> torch.Tensor:
-    """(num_pairs, 2, 2) int32 — [(a_row, a_col), (b_row, b_col)] offsets,
-    drawn from N(0, sigma) on the generator's device and rounded half to
-    even.  The draws differ from ``jax.random``'s; to reproduce the JAX
-    package's pairs, take them from there (``convert.from_jax``)."""
-    pts = torch.randn((num_pairs, 2, 2), generator=generator,
-                      device=generator.device) * sigma
-    return torch.round(pts).to(torch.int32)
+def gaussian_pairs(seed: int, sigma: float = DEFAULT_SIGMA,
+                   num_pairs: int = NUM_PAIRS, device="cuda") -> torch.Tensor:
+    """(num_pairs, 2, 2) int32 — [(a_row, a_col), (b_row, b_col)] offsets
+    on ``device``: the JAX package's ``gaussian_pairs(PRNGKey(seed), sigma,
+    num_pairs)`` entry for entry.  The N(0, 1) draws are JAX's threefry
+    stream and normal transform, in numpy (``utils/prng.py``), scaled by
+    sigma in float32 and rounded half to even."""
+    dev = resolve_device(device)
+    pts = prng.normal(prng.prng_key(seed), (num_pairs, 2, 2)) \
+        * np.float32(sigma)
+    return torch.from_numpy(np.rint(pts).astype(np.int32)).to(dev)
 
 
 def rotated_offsets(pairs: torch.Tensor,

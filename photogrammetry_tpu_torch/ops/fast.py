@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from photogrammetry_tpu_torch.utils.padding import PaddedPoints
+from photogrammetry_tpu_torch.utils.padding import PaddedPoints, front_indices
 
 # Radius-3 Bresenham ring, positions 1..16 as (row, col) offsets relative to
 # the center pixel, in ring order.
@@ -61,25 +61,34 @@ def fast_score_map(image: torch.Tensor, threshold: float) -> torch.Tensor:
     return torch.where(interior, score, 0).to(torch.int32)
 
 
-def extract_keypoints(score_map: torch.Tensor, capacity: int) -> PaddedPoints:
-    """Dense (H, W) score map → fixed-capacity keypoints in score order
-    (score descending, raster ascending): ``extract_keypoints(order="score")``
-    of the JAX package.
+def extract_keypoints(score_map: torch.Tensor, capacity: int,
+                      order: str = "raster") -> PaddedPoints:
+    """Dense (H, W) score map → fixed-capacity keypoints.
 
-    The JAX key ``raster - score*h*w`` is unique for detected pixels; the
-    INT32_MAX fill of the others ties, and ``lax.top_k`` breaks that tie by
-    lower index.  Here the fill carries the raster index as well
-    (``INT32_MAX - h*w + raster``, still above every detected key), so all
-    keys are unique and ``torch.topk`` returns JAX's order exactly.
+    ``order="raster"`` (the JAX default) keeps the detected pixels in
+    row-major order, the reference's detection order; ``order="score"``
+    sorts by score descending, raster ascending among equal scores.
+
+    For the score order, the JAX key ``raster - score*h*w`` is unique for
+    detected pixels; the INT32_MAX fill of the others ties, and
+    ``lax.top_k`` breaks that tie by lower index.  Here the fill carries
+    the raster index as well (``INT32_MAX - h*w + raster``, still above
+    every detected key), so all keys are unique and ``torch.topk`` returns
+    JAX's order exactly.
     """
     h, w = score_map.shape
     flat = score_map.reshape(-1).to(torch.int32)
     det = flat > 0
     total = det.sum().to(torch.int32)
-    raster = torch.arange(h * w, dtype=torch.int32, device=flat.device)
-    key = torch.where(det, raster - flat * (h * w),
-                      (INT32_MAX - h * w) + raster)
-    idx = torch.topk(-key, capacity).indices
+    if order == "raster":
+        idx = front_indices(det, capacity)
+    elif order == "score":
+        raster = torch.arange(h * w, dtype=torch.int32, device=flat.device)
+        key = torch.where(det, raster - flat * (h * w),
+                          (INT32_MAX - h * w) + raster)
+        idx = torch.topk(-key, capacity).indices
+    else:
+        raise ValueError(f"unknown order {order!r}")
     valid = torch.arange(capacity, device=flat.device) < total
     coords = torch.stack([idx // w, idx % w], dim=-1).to(torch.int32)
     score = torch.where(valid, flat[idx].to(torch.float32), 0.0)

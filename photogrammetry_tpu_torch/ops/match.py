@@ -1,5 +1,4 @@
-"""Descriptor matching (port of photogrammetry_tpu/ops/match.py:
-``hamming_distance_matrix``, ``mutual_nearest_matches``).
+"""Descriptor matching (port of photogrammetry_tpu/ops/match.py).
 
 ``hamming_distance_matrix`` here is the plain PyTorch version,
 |a| + |b| - 2 a.b as one f32 matrix product (exact: 0/1 products and sums
@@ -8,6 +7,11 @@ kernel in ``kernels/hamming.py`` instead, whose wrapper runs this function
 only for tensors on the CPU.  ``hamming_distance_matrix_pairs`` is the same
 over a batch of frame pairs (loop closure's pair grid), and
 ``mutual_nearest_counts`` the batched match count that reads it.
+
+Match policies over a distance matrix: ``mutual_nearest_matches`` (the
+frontend's), ``sorted_candidate_matches`` (per-row candidates by
+distance), ``greedy_global_matches`` (repeatedly the globally smallest
+remaining pair) and the ``motion_consistency_mask`` prefilter.
 """
 from __future__ import annotations
 
@@ -93,3 +97,64 @@ def mutual_nearest_matches(dist: torch.Tensor, max_distance: int,
             second, max=INT_INF - 1).to(torch.float32)
         valid = valid & ok
     return torch.where(valid, best2, -1).to(torch.int32), d, valid
+
+
+def sorted_candidate_matches(dist: torch.Tensor):
+    """Per-row candidates sorted ascending by distance, equal distances in
+    column order (a stable sort, as ``jnp.argsort``).
+
+    Returns (indices (N1, N2) int32, distances (N1, N2) int32)."""
+    d, order = torch.sort(dist, dim=1, stable=True)
+    return order.to(torch.int32), d
+
+
+def greedy_global_matches(dist: torch.Tensor, num_matches: int):
+    """Greedy global assignment: ``num_matches`` times, take the globally
+    smallest remaining (i, j) (the first in row-major order among equals)
+    and remove row i and column j.  Once every entry is INT_INF a step
+    gives (0, 0, INT_INF), invalid, as JAX's ``scan`` does.  The steps
+    read nothing back to the host.
+
+    Returns (i (M,) int32, j (M,) int32, d (M,) int32, valid (M,) bool)."""
+    n1, n2 = dist.shape
+    d = dist.clone()
+    ii, jj, dd = [], [], []
+    for _ in range(num_matches):
+        flat = torch.argmin(d.reshape(-1)).reshape(1)
+        i, j = flat // n2, flat % n2
+        dd.append(d.reshape(-1).gather(0, flat))
+        d.index_fill_(0, i, INT_INF)
+        d.index_fill_(1, j, INT_INF)
+        ii.append(i)
+        jj.append(j)
+    if not num_matches:
+        empty = torch.zeros((0,), dtype=torch.int32, device=dist.device)
+        return empty, empty, empty, empty.to(torch.bool)
+    dd = torch.cat(dd)
+    return (torch.cat(ii).to(torch.int32), torch.cat(jj).to(torch.int32),
+            dd, dd < INT_INF)
+
+
+def motion_consistency_mask(xy1: torch.Tensor, xy2: torch.Tensor,
+                            mask: torch.Tensor,
+                            neighbor_radius: float = 600.0,
+                            agreement_radius: float = 80.0,
+                            min_support: int = 2) -> torch.Tensor:
+    """Motion-smoothness filter over candidate matches (GMS-style): a match
+    survives iff at least ``min_support`` other valid matches whose
+    image-1 points lie within ``neighbor_radius`` px have displacements
+    within ``agreement_radius`` px of its own (strict ``<`` on the f32
+    squared distances).  Two dense (N, N) distance matrices.
+
+    Returns the refined (N,) bool mask."""
+    d = xy2 - xy1
+    nr2 = torch.tensor(neighbor_radius, dtype=torch.float32,
+                       device=xy1.device) ** 2
+    ar2 = torch.tensor(agreement_radius, dtype=torch.float32,
+                       device=xy1.device) ** 2
+    near = ((xy1[:, None] - xy1[None]) ** 2).sum(-1) < nr2
+    agree = ((d[:, None] - d[None]) ** 2).sum(-1) < ar2
+    both = mask[:, None] & mask[None, :]
+    support = (near & agree & both).sum(dim=1, dtype=torch.int32) \
+        - mask.to(torch.int32)
+    return mask & (support >= min_support)

@@ -21,17 +21,25 @@ from typing import NamedTuple
 
 import torch
 
-from photogrammetry_tpu_torch import resolve_device
 from photogrammetry_tpu_torch.core.camera import keypoints_to_xy
 from photogrammetry_tpu_torch.kernels import brief_pack, fast_stencil, hamming
 from photogrammetry_tpu_torch.ops.brief import (
     angles_cos_sin, gaussian_pairs, keypoint_orientations,
 )
+from photogrammetry_tpu_torch.ops.cluster import grid_cluster_keypoints
 from photogrammetry_tpu_torch.ops.fast import extract_keypoints
 from photogrammetry_tpu_torch.ops.match import mutual_nearest_matches
-from photogrammetry_tpu_torch.ops.nms import compact_points, nms_keypoints_static
+from photogrammetry_tpu_torch.ops.nms import (
+    anms_keypoints, compact_points, nms_keypoints, nms_keypoints_parallel,
+    nms_keypoints_static,
+)
 from photogrammetry_tpu_torch.ops.refine import refine_subpixel_dense
 from photogrammetry_tpu_torch.utils.padding import PaddedPoints
+
+NMS_IMPLS = {"static": nms_keypoints_static,
+             "parallel": nms_keypoints_parallel,
+             "sequential": nms_keypoints}
+REDUCTIONS = ("nms", "anms", "cluster", "none")
 
 
 @dataclass(frozen=True)
@@ -40,14 +48,15 @@ class FrontendConfig:
 
     The JAX FrontendConfig's fields without its two ``use_pallas_*`` flags:
     here the tensors' device decides between kernel and plain version.
-    The port runs ``reduction`` 'nms' (with ``nms_impl`` 'static') and
-    'none', and BRIEF unoriented or steered (``oriented_brief``); the other
-    options are JAX-only for now.
+    ``reduction``: 'nms' (greedy radius NMS, ``nms_impl`` 'static',
+    'parallel' or 'sequential', one result), 'anms' (adaptive NMS keeping
+    max(max_keypoints // 4, 64)), 'cluster' (the chunked agglomerative
+    clustering) or 'none'.
     """
     detection_threshold: float = 50.0
     max_keypoints: int = 1024
-    reduction: str = "nms"            # 'nms' | 'none' in the port
-    nms_impl: str = "static"
+    reduction: str = "nms"            # 'nms' | 'anms' | 'cluster' | 'none'
+    nms_impl: str = "static"          # 'static' | 'parallel' | 'sequential'
     suppression_radius: float = 50.0
     max_merge_dist: float = 25.0
     cluster_chunks: tuple = (4, 4)
@@ -60,12 +69,10 @@ class FrontendConfig:
     oriented_brief: bool = False
 
     def __post_init__(self):
-        if self.reduction not in ("nms", "none"):
-            raise NotImplementedError(
-                f"reduction={self.reduction!r} is not ported yet")
-        if self.reduction == "nms" and self.nms_impl != "static":
-            raise NotImplementedError(
-                f"nms_impl={self.nms_impl!r} is not ported yet")
+        if self.reduction not in REDUCTIONS:
+            raise ValueError(f"unknown reduction {self.reduction!r}")
+        if self.nms_impl not in NMS_IMPLS:
+            raise ValueError(f"unknown nms_impl {self.nms_impl!r}")
 
 
 class DescribedFrame(NamedTuple):
@@ -84,23 +91,30 @@ class MatchedPair(NamedTuple):
 
 
 def make_pairs(config: FrontendConfig, device="cuda") -> torch.Tensor:
-    """BRIEF pair table drawn from a torch generator seeded with
-    ``config.pair_seed`` (not the JAX package's pairs: see convert.from_jax).
-    """
-    gen = torch.Generator(device=resolve_device(device))
-    gen.manual_seed(config.pair_seed)
-    return gaussian_pairs(gen, sigma=config.brief_sigma,
-                          num_pairs=config.num_pairs)
+    """The BRIEF pair table on ``device``: the JAX package's
+    ``make_pairs(config)`` (``jax.random.PRNGKey(config.pair_seed)``),
+    entry for entry."""
+    return gaussian_pairs(config.pair_seed, sigma=config.brief_sigma,
+                          num_pairs=config.num_pairs, device=device)
 
 
-def _detect_from_score(score: torch.Tensor,
+def _detect_from_score(score: torch.Tensor, h: int, w: int,
                        config: FrontendConfig) -> PaddedPoints:
     """fixed-capacity keypoint extraction → redundancy reduction."""
-    pts = extract_keypoints(score, config.max_keypoints)
+    pts = extract_keypoints(score, config.max_keypoints, order="score")
     if config.reduction == "nms":
         pts = compact_points(
-            nms_keypoints_static(pts, config.suppression_radius),
+            NMS_IMPLS[config.nms_impl](pts, config.suppression_radius),
             config.max_keypoints)
+    elif config.reduction == "anms":
+        keep = max(config.max_keypoints // 4, 64)
+        pts = compact_points(anms_keypoints(pts, keep), config.max_keypoints)
+    elif config.reduction == "cluster":
+        pts = grid_cluster_keypoints(
+            pts, h, w, max_merge_dist=config.max_merge_dist,
+            chunks=tuple(config.cluster_chunks),
+            chunk_capacity=max(config.max_keypoints // 4, 64))
+        pts = compact_points(pts, config.max_keypoints)
     return pts
 
 
@@ -109,8 +123,9 @@ def detect_keypoints(gray: torch.Tensor, config: FrontendConfig,
     """score map → fixed-capacity keypoints → redundancy reduction."""
     score_fn = (fast_stencil.fast_score_map_plain if plain
                 else fast_stencil.fast_score_map)
+    h, w = gray.shape
     return _detect_from_score(score_fn(gray, config.detection_threshold),
-                              config)
+                              h, w, config)
 
 
 def describe_bits(gray: torch.Tensor, pts: PaddedPoints, pairs: torch.Tensor,
@@ -156,8 +171,9 @@ def detect_and_describe_batch_split(grays: torch.Tensor, pairs: torch.Tensor,
     score_fn = (fast_stencil.fast_score_map_plain if plain
                 else fast_stencil.fast_score_map_batch)
     scores = score_fn(grays, config.detection_threshold)
+    h, w = grays.shape[-2:]
     pts = PaddedPoints(*map(torch.stack, zip(*(
-        _detect_from_score(score, config) for score in scores))))
+        _detect_from_score(score, h, w, config) for score in scores))))
     bits = describe_bits(grays, pts, pairs, config, plain)
     xy = torch.stack([refine_xy(gray, PaddedPoints(*(x[i] for x in pts)),
                                 config) for i, gray in enumerate(grays)])

@@ -576,7 +576,7 @@ def test_fast_and_brief_kernels_on_the_octaves(dev, octaves):
     got = fast_stencil.fast_score_map_batch(img, 20.0)
     ref = fast_stencil.fast_score_map_plain(img, 20.0)
     assert torch.equal(got, ref) and int((ref > 0).sum()) > 0
-    pts = [extract_keypoints(x, 512) for x in ref]
+    pts = [extract_keypoints(x, 512, order="score") for x in ref]
     coords = torch.stack([p.coords for p in pts])
     mask = torch.stack([p.mask for p in pts])
     pairs = torch.tensor(np.rint(rng.normal(0, 20, (256, 2, 2))),
@@ -681,3 +681,63 @@ def test_submaps_kernel_vs_plain(dev):
     diff = max(np.abs(out[0][0] - out[1][0]).max(),
                np.abs(out[0][1] - out[1][1]).max())
     assert diff <= 0.05 * correction
+
+
+@pytest.mark.parametrize("reduction,impl", [
+    ("nms", "sequential"), ("nms", "parallel"), ("anms", "static"),
+    ("cluster", "static"), ("none", "static")])
+def test_frontend_variants_card_equals_cpu(dev, reduction, impl):
+    """Every reduction on the card, with the kernels, gives the CPU's
+    keypoints, bits and matches (the CPU path is held to the JAX package
+    in tests/test_torch_frontend_variants.py)."""
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        FrontendConfig, detect_and_describe, make_pairs, match_pair,
+    )
+
+    scene = _small_pan()
+    cfg = FrontendConfig(max_keypoints=256, suppression_radius=4.0,
+                         reduction=reduction, nms_impl=impl)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        pairs = make_pairs(cfg, device=d)
+        fs = [detect_and_describe(torch.tensor(
+            scene["frames"][i], dtype=torch.float32, device=d), pairs, cfg)
+            for i in (0, 2)]
+        out[d.type] = (fs, match_pair(*fs, cfg))
+    (gf, gm), (cf, cm) = out["cuda"], out["cpu"]
+    for g, c in zip(gf, cf):
+        for a, b in zip([*g.points, g.bits], [*c.points, c.bits]):
+            assert torch.equal(a.cpu(), b)
+    for a, b in zip(gm[2:], cm[2:]):          # idx2, dist, mask, num
+        assert torch.equal(a.cpu(), b)
+
+
+def test_cluster_and_matchers_card_equals_cpu(dev):
+    """grid_cluster_keypoints (its early stop read back from the card),
+    greedy and sorted matching and the motion filter, card against CPU."""
+    from photogrammetry_tpu_torch.ops import cluster, match
+    from photogrammetry_tpu_torch.utils.padding import PaddedPoints
+
+    rng = np.random.default_rng(9)
+    n = 900
+    coords = np.stack([rng.integers(0, 240, n), rng.integers(0, 320, n)], -1)
+    pts = PaddedPoints(torch.tensor(coords, dtype=torch.int32),
+                       torch.ones(n), torch.ones(n, dtype=torch.bool),
+                       torch.tensor(n, dtype=torch.int32))
+    dist = torch.tensor(rng.integers(0, 12, (60, 50)), dtype=torch.int32)
+    xy1 = torch.tensor(rng.integers(0, 1200, (200, 2)), dtype=torch.float32)
+    xy2 = xy1 + torch.tensor(rng.integers(-60, 61, (200, 2)),
+                             dtype=torch.float32)
+    mask = torch.tensor(rng.random(200) < 0.9)
+    calls = [
+        lambda d: cluster.grid_cluster_keypoints(
+            PaddedPoints(*(x.to(d) for x in pts)), 240, 320,
+            chunk_capacity=128),
+        lambda d: match.greedy_global_matches(dist.to(d), 70),
+        lambda d: match.sorted_candidate_matches(dist.to(d)),
+        lambda d: (match.motion_consistency_mask(
+            xy1.to(d), xy2.to(d), mask.to(d)),),
+    ]
+    for call in calls:
+        for a, b in zip(call(dev), call(torch.device("cpu"))):
+            assert torch.equal(a.cpu(), b)

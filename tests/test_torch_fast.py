@@ -67,7 +67,7 @@ def test_extract_keypoints_score_order_exact(capacity):
     img = _image(5, (120, 160))
     score = np.asarray(jax_fast(img, 30.0))
     ref = jax_extract(score, capacity=capacity, order="score")
-    got = extract_keypoints(torch.tensor(score), capacity)
+    got = extract_keypoints(torch.tensor(score), capacity, order="score")
     for name in PaddedPoints._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(ref, name)), name)
@@ -80,7 +80,7 @@ def test_extract_keypoints_fewer_than_capacity_exact():
     score[20, 30] = 16
     score[5, 5] = 13
     ref = jax_extract(score, capacity=16, order="score")
-    got = extract_keypoints(torch.tensor(score), 16)
+    got = extract_keypoints(torch.tensor(score), 16, order="score")
     for name in PaddedPoints._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(ref, name)), name)
@@ -93,7 +93,8 @@ def test_nms_static_and_compact_exact(radius):
     ref = jax_compact(jax_nms(jax_extract(score, capacity=128,
                                           order="score"), radius), 128)
     got = compact_points(nms_keypoints_static(
-        extract_keypoints(torch.tensor(score), 128), radius), 128)
+        extract_keypoints(torch.tensor(score), 128, order="score"), radius),
+        128)
     for name in PaddedPoints._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(ref, name)), name)

@@ -8,7 +8,7 @@ median exactly; the batched frontend's keypoints and bits exactly and xy
 within 1e-4; the track-table helpers' masks exactly and their points
 within 1e-4 relative; the PnP stages with the JAX draws injected: the same
 decisions and poses within 1e-3.  The whole run is not bitwise comparable
-(the port draws from a ``torch.Generator`` and its BRIEF pairs differ), so
+(the port draws its RANSAC samples from a ``torch.Generator``), so
 both packages are held to the bounds of tests/test_incremental.py on the
 same frames: ATE < 0.2 scene units and > 80 landmarks.
 """
