@@ -161,6 +161,22 @@ Phases, each printing one JSON line with its seconds:
      batched ``cdist(p=0)`` CUDA-event ms), and the wall, busy and idle
      share of ``close_loops`` at F = 23 and of ``optimize_pose_graph``
      alone;
+     distributed: the distributed layer in spawned processes (the main
+     process's profiler and CUDA state stay clean).  A world of one NCCL
+     rank: ``distributed_bundle_adjust`` on the timing_ba problem (F=16,
+     T=4096, 10 iterations) with the kernel and ``plain=True`` beside
+     ``bundle_adjust`` (Schur once an iteration, iterations/s median of 5
+     in turns), ``distributed_optimize_pose_graph`` dense on the loop
+     phase's graph beside ``optimize_pose_graph``, CG at DIST_CG_NODES
+     nodes on the card and on the CPU, the robust SfM with
+     ``SfmConfig.mesh`` at SFM_SEED (ATE beside the sfm phase's) and one
+     ``run_sfm --mesh 1 --restarts 3`` on the frames as files (launches
+     counted: ``launches_distributed``); a world of DIST_WORLD gloo ranks
+     on the one card: the same BA (Schur at F16/T2048 a shard), the ranks
+     bit-identical, within DIST_COST_RTOL / DIST_POSE_ATOL of
+     ``bundle_adjust``, the kernel within its f32 bound of its plain
+     version on a shard's operands, iterations/s, and Schur at the shard
+     shape timed (graph replay, call, plain, the cuBLAS pair, bound);
  11. keyframes: ``run_keyframed_sfm(restarts=3)`` on the 12 frames at
      KF_DISP_PX (4-8 keyframes) and KF_SEED, launches counted; keyframe
      selection kernel vs plain (the same list and features), localization
@@ -192,7 +208,9 @@ Then the ``{"kernels": [...]}`` line (each kernel's launches on every
 path, ``launches_loop`` on the loop-closure phase, ``launches_keyframes``,
 ``launches_submaps`` and ``launches_pyramid`` on the new ones, each of
 FAST, BRIEF, Hamming and Schur > 0 there; ``launches_frontend_clis``,
-FAST, BRIEF and Hamming > 0 there; the row at the new shape as
+FAST, BRIEF and Hamming > 0 there; ``launches_distributed``, each of
+FAST, BRIEF, Hamming and Schur > 0 on ``run_sfm --mesh 1``, and Schur's
+row at the shard shape as ``distributed_shape``; the row at the new shape as
 ``new_shape``, at the CLIs' as ``cli_shape``; Hamming's batched entry
 as its ``batched`` row) and, last, the ok line.  Any failure
 raises and exits non-zero before the ok line.  Needs one CUDA card; exits
@@ -362,6 +380,22 @@ CLI_FRAMES = (0, 2)
 POSE_MAX_DEG = 5.0
 POSE_MIN_MATCHES = 30
 POSE_MIN_POINTS = 10
+
+
+# The distributed phase: bench_all.py's BA problem (timing_ba's: 16
+# cameras, 4096 landmarks, 10 LM iterations) sharded over a world of one
+# rank (NCCL) and of DIST_WORLD ranks (gloo, both on the one card: NCCL
+# refuses two ranks on one GPU), so Schur runs at F16/T2048 a shard; the
+# sharded BA held to bundle_adjust within tests/test_distributed.py's
+# tolerances (cost 1e-4 relative, poses 1e-3); the CG pose graph at
+# DIST_CG_NODES nodes (tests/test_dist_pose_graph.py's); each world's
+# processes limited to DIST_TIMEOUT seconds.
+DIST_BA = (16, 4096, 10)
+DIST_WORLD = 2
+DIST_COST_RTOL = 1e-4
+DIST_POSE_ATOL = 1e-3
+DIST_CG_NODES = 256
+DIST_TIMEOUT = 600.0
 
 
 def emit(obj) -> None:
@@ -2351,6 +2385,27 @@ def drive_pyramid(dev, seq, k, centers, counters, single_scale):
     return launches
 
 
+def schur_row(args) -> dict:
+    """The Schur kernel's timing row for ``shape_times`` on its operands
+    (w_hinv, w_cp (F, T, 6, 3), b_p (T, 3)), beside the cuBLAS pair on
+    operands flattened to (6F, 3T) beforehand (the flattening is not in
+    its time)."""
+    import torch
+
+    from photogrammetry_tpu_torch.kernels import schur
+
+    f, t = args[0].shape[:2]
+    a, b = (x.permute(0, 2, 1, 3).reshape(6 * f, 3 * t).contiguous()
+            for x in args[:2])
+    bp = args[2].reshape(-1)
+    return dict(run=lambda: schur.schur_products(*args),
+                plain=lambda: schur.schur_products_plain(*args),
+                library=lambda: (torch.matmul(a, b.T), a @ bp),
+                bytes=2 * (6 * f * 3 * t) * 4 + 3 * t * 4
+                + (6 * f) ** 2 * 4 + 6 * f * 4,
+                ops=2 * (6 * f) ** 2 * 3 * t + 2 * 6 * f * 3 * t)
+
+
 def shape_times(rows) -> dict:
     """Each row's kernel by CUDA-graph replay (device ms, no profiler
     session) and CUDA events a call, beside its plain version's and its
@@ -2584,7 +2639,7 @@ def time_new_shapes(dev, seq):
     pair."""
     import torch
 
-    from photogrammetry_tpu_torch.kernels import fast_stencil, hamming, schur
+    from photogrammetry_tpu_torch.kernels import fast_stencil, hamming
     from photogrammetry_tpu_torch.sfm.frontend import (
         _downsample2, detect_and_describe_batch_split, make_pairs,
         precompute_frontend,
@@ -2606,10 +2661,6 @@ def time_new_shapes(dev, seq):
     m1, m2 = pyr.points.mask[0], pyr.points.mask[1]
     n, p = a1.shape
     f, t = 23, 4096
-    sargs = schur_inputs(dev, f, t, seed=f * t)
-    sa, sb = (x.permute(0, 2, 1, 3).reshape(6 * f, 3 * t).contiguous()
-              for x in sargs[:2])
-    sbp = sargs[2].reshape(-1)
     rows = {
         "fast_score_540x960_b12": dict(
             run=lambda: fast_stencil.fast_score_map_batch(octave, thr),
@@ -2623,13 +2674,7 @@ def time_new_shapes(dev, seq):
             library=lambda: torch.cdist(a1.float(), a2.float(), p=0),
             bytes=2 * n * p + 2 * n + n * n * 4, ops=2 * n * n * p,
             ops_per_s=INT8_OPS_PER_S),
-        "schur_F23_T4096": dict(
-            run=lambda: schur.schur_products(*sargs),
-            plain=lambda: schur.schur_products_plain(*sargs),
-            library=lambda: (torch.matmul(sa, sb.T), sa @ sbp),
-            bytes=2 * (6 * f * 3 * t) * 4 + 3 * t * 4 + (6 * f) ** 2 * 4
-            + 6 * f * 4,
-            ops=2 * (6 * f) ** 2 * 3 * t + 2 * 6 * f * 3 * t),
+        "schur_F23_T4096": schur_row(schur_inputs(dev, f, t, seed=f * t)),
     }
     out = shape_times(rows)
     brief = rows["brief_bits_540x960_b12"]
@@ -2649,7 +2694,9 @@ def time_loop(dev, loop):
     SFM_KEYPOINTS x 256 bits: device ms by CUDA-graph replay, call ms,
     bound, the plain version's and ``torch.cdist(p=0)``'s CUDA-event ms;
     then the wall ms, busy ms and idle share of ``close_loops`` (revisit)
-    at F = 23 and of ``optimize_pose_graph`` alone on its graph."""
+    at F = 23 and of ``optimize_pose_graph`` alone on its graph.  Returns
+    the rows and that graph with its poses (numpy) for the distributed
+    phase."""
     import torch
 
     from photogrammetry_tpu_torch.cli.run_sfm import LOOP_SEED as DRAWS
@@ -2734,7 +2781,390 @@ def time_loop(dev, loop):
     result["pose_graph"] = dict(nodes=int(rs.shape[0]),
                                 edges=int(graph.edges.shape[0]))
     emit(result)
-    return rows
+    return rows, (rs.cpu().numpy(), ts.cpu().numpy(),
+                  tuple(x.cpu().numpy() for x in graph))
+
+
+def kernel_counters() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from photogrammetry_tpu_torch.kernels import (
+        brief_pack, fast_stencil, hamming, remap, schur,
+    )
+
+    return {"fast_score": fast_stencil.fast_score_map_batch,
+            "brief_bits": brief_pack.brief_bits,
+            "hamming": hamming.hamming_distance_matrix,
+            "schur": schur.schur_products,
+            "remap": remap.remap_bilinear}
+
+
+def dist_problem(dev):
+    """bench_all.py's BA problem (timing_ba's draws, ``bench_scaling``'s
+    ``build_problem``) at DIST_BA's F and T on ``dev``."""
+    import torch
+
+    from photogrammetry_tpu_torch.cli.bench_scaling import build_problem
+    from photogrammetry_tpu_torch.sfm.ba import BAProblem, BAState
+
+    f, t, _ = DIST_BA
+    rs, ts, points, obs, k = (torch.as_tensor(x, device=dev) for x in
+                              build_problem(np.random.default_rng(0), f, t))
+    mask = torch.ones((f, t), dtype=torch.bool, device=dev)
+    return (BAState(rs=rs, ts=ts, points=points),
+            BAProblem(obs=obs, mask=mask, k=k))
+
+
+def ba_numpy(res) -> dict:
+    return dict(rs=res.state.rs.cpu().numpy(), ts=res.state.ts.cpu().numpy(),
+                points=res.state.points.cpu().numpy(),
+                cost=float(res.cost), initial_cost=float(res.initial_cost))
+
+
+def circle_graph(n: int, noise: float, seed: int = 0):
+    """tests/test_pose_graph.py's noisy circle graph in the port (numpy
+    out): n poses yawing along a circle of radius 2, odometry edges with
+    ``noise`` on rotation and translation, two loop edges (n-1 -> 0,
+    n/2 -> 0) at a tenth of it and weight 10."""
+    import torch
+
+    from photogrammetry_tpu_torch.core.lie import so3_exp
+    from photogrammetry_tpu_torch.sfm.pose_graph import relative_pose
+
+    rng = np.random.default_rng(seed)
+    a = 2 * np.pi * np.arange(n) / n
+    rs = so3_exp(torch.tensor(np.stack([0 * a, a, 0 * a], -1),
+                              dtype=torch.float32))
+    c = torch.tensor(np.stack([2 * np.sin(a), 0 * a, 2 * (1 - np.cos(a))],
+                              -1), dtype=torch.float32)
+    ts = -(rs @ c[..., None])[..., 0]
+    edges, zr, zt, ww = [], [], [], []
+    for i, j, sigma, weight in ([(i, i + 1, noise, 1.0) for i in range(n - 1)]
+                                + [(n - 1, 0, noise / 10, 10.0),
+                                   (n // 2, 0, noise / 10, 10.0)]):
+        r, t = relative_pose(rs[i], ts[i], rs[j], ts[j])
+        r = so3_exp(torch.tensor(rng.normal(0, sigma, 3),
+                                 dtype=torch.float32)) @ r
+        edges.append((i, j))
+        zr.append(r.numpy())
+        zt.append((t.numpy() + rng.normal(0, sigma, 3)).astype(np.float32))
+        ww.append(weight)
+    return (rs.numpy(), ts.numpy(),
+            (np.asarray(edges, np.int32), np.stack(zr), np.stack(zt),
+             np.asarray(ww, np.float32)))
+
+
+def _graph_on(graph, dev):
+    import torch
+
+    from photogrammetry_tpu_torch.sfm.pose_graph import PoseGraph
+
+    return PoseGraph(*(torch.as_tensor(x, device=dev) for x in graph))
+
+
+def _pg_numpy(res) -> dict:
+    return dict(rs=res.rs.cpu().numpy(), ts=res.ts.cpu().numpy(),
+                cost=float(res.cost), initial_cost=float(res.initial_cost))
+
+
+def _world_one(rank, device_type, seq, k, centers, frames_dir, out_dir,
+               loop_graph):
+    """The distributed phase's world of one rank (NCCL on the card; gloo
+    in a CPU rehearsal): the sharded BA beside ``bundle_adjust``, both with
+    the kernel and plain, their iterations/s; the dense pose graph on the
+    loop phase's graph beside ``optimize_pose_graph``; CG at
+    DIST_CG_NODES on the card and on the CPU; the robust SfM with the
+    mesh at SFM_SEED; one ``run_sfm --mesh 1 --restarts 3``."""
+    import torch
+
+    from photogrammetry_tpu_torch.parallel import (
+        distributed_bundle_adjust, make_mesh,
+    )
+    from photogrammetry_tpu_torch.parallel.dist_pose_graph import (
+        distributed_optimize_pose_graph, pad_graph,
+    )
+    from photogrammetry_tpu_torch.parallel.mesh import mesh_device
+    from photogrammetry_tpu_torch.sfm.ba import bundle_adjust
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm_robust,
+    )
+    from photogrammetry_tpu_torch.sfm.metrics import trajectory_ate
+    from photogrammetry_tpu_torch.sfm.pose_graph import optimize_pose_graph
+
+    counters = kernel_counters()
+    mesh = make_mesh(device_type=device_type)
+    dev = mesh_device(mesh)
+    out = {"backend": torch.distributed.get_backend()}
+    state, prob = dist_problem(dev)
+    iters = DIST_BA[2]
+
+    def dist_ba(plain):
+        return distributed_bundle_adjust(state, prob, mesh,
+                                         num_iterations=iters, plain=plain)
+
+    def single_ba(plain):
+        return bundle_adjust(state, prob, num_iterations=iters, plain=plain)
+
+    counters["schur"].launches = 0
+    out["ba"] = {"distributed_kernel": ba_numpy(dist_ba(False))}
+    out["schur_launches_a_call"] = counters["schur"].launches
+    out["ba"].update(distributed_plain=ba_numpy(dist_ba(True)),
+                     single_kernel=ba_numpy(single_ba(False)),
+                     single_plain=ba_numpy(single_ba(True)))
+    ms = {}
+    if device_type == "cuda":       # in turns; not timed in a rehearsal
+        for label, fn in (("distributed", dist_ba), ("single", single_ba),
+                          ("single", single_ba), ("distributed", dist_ba)):
+            ms.setdefault(label, []).append(
+                host_ms(lambda fn=fn: fn(False), reps=5))
+    out["ba_ms"] = ms
+
+    lrs, lts, graph = loop_graph
+    lrs, lts = (torch.as_tensor(x, device=dev) for x in (lrs, lts))
+    g = _graph_on(graph, dev)
+    out["pose_graph"] = dict(
+        distributed=_pg_numpy(distributed_optimize_pose_graph(
+            lrs, lts, pad_graph(g, 1), mesh, num_iterations=20)),
+        single=_pg_numpy(optimize_pose_graph(lrs, lts, g,
+                                             num_iterations=20)))
+
+    crs, cts, cgraph = circle_graph(DIST_CG_NODES, 0.04)
+    cpu_mesh = make_mesh(device_type="cpu")
+    out["cg"] = {}
+    for label, on, m in (("card", dev, mesh),
+                         ("cpu", torch.device("cpu"), cpu_mesh)):
+        t0 = time.perf_counter()
+        res = distributed_optimize_pose_graph(
+            torch.as_tensor(crs, device=on), torch.as_tensor(cts, device=on),
+            _graph_on(cgraph, on), m, num_iterations=10, solver="cg",
+            cg_iterations=60)
+        out["cg"][label] = dict(_pg_numpy(res),
+                                seconds=time.perf_counter() - t0)
+
+    cfg = SfmConfig(collect_diagnostics=False, mesh=mesh)
+    for c in counters.values():
+        c.launches = 0
+    res = run_incremental_sfm_robust(seq, k, cfg, seed=SFM_SEED, restarts=3,
+                                     device=dev)
+    out["sfm"] = dict(
+        launches={n: c.launches for n, c in counters.items()},
+        ate=trajectory_ate(res.rs, res.ts, centers),
+        landmarks=len(res.points))
+
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    report = run_cli([frames_dir, "--fx", str(k[0, 0]), "--cx", str(k[0, 2]),
+                      "--cy", str(k[1, 2]), "--mesh", "1", "--restarts", "3",
+                      "--device", device_type,
+                      "--cloud", f"{out_dir}/dist.ply",
+                      "--trajectory", f"{out_dir}/dist.json"])
+    with open(f"{out_dir}/dist.json") as fh:
+        traj = json.load(fh)
+    out["cli"] = dict(
+        launches={n: c.launches for n, c in counters.items()},
+        seconds=time.perf_counter() - t0, landmarks=report["landmarks"],
+        quality=report.get("quality"), centers=len(traj["centers"]),
+        ate=trajectory_ate(traj["rotations"], traj["translations"],
+                           centers))
+    return out
+
+
+def _world_two(rank, device_type):
+    """One of the distributed phase's two gloo ranks (both on the one
+    card): the sharded BA with the kernel (launches counted, the first
+    shard's Schur operands kept) and plain; the kernel against its plain
+    version on those operands within its f32 bound; iterations/s; then
+    rank 0 alone times Schur at the shard shape while rank 1 waits in an
+    all-reduce."""
+    import torch
+    import torch.distributed as dist
+
+    from photogrammetry_tpu_torch.kernels import schur
+    from photogrammetry_tpu_torch.parallel import (
+        distributed_bundle_adjust, make_mesh,
+    )
+    from photogrammetry_tpu_torch.parallel.mesh import mesh_device
+    from photogrammetry_tpu_torch.sfm import ba
+
+    mesh = make_mesh(device_type=device_type, backend="gloo")
+    dev = mesh_device(mesh)
+    state, prob = dist_problem(dev)
+    iters = DIST_BA[2]
+
+    def dist_ba(plain):
+        return distributed_bundle_adjust(state, prob, mesh,
+                                         num_iterations=iters, plain=plain)
+
+    operands = []
+
+    def keeping(*args):
+        if not operands:
+            operands.extend(x.clone() for x in args)
+        return schur.schur_products(*args)
+
+    schur.schur_products.launches = 0
+    ba.schur_products = keeping
+    try:
+        kernel = ba_numpy(dist_ba(False))
+    finally:
+        ba.schur_products = schur.schur_products
+    launches = schur.schur_products.launches
+    out = dict(rank=rank, device=str(dev), kernel=kernel,
+               plain=ba_numpy(dist_ba(True)), schur_launches=launches,
+               shard_shape=list(operands[0].shape[:2]))
+    got = schur.schur_products(*operands)
+    ref = schur.schur_products_plain(*operands)
+    bounds = schur.error_bound(*operands)
+    out.update(
+        schur_max_abs_err=max(max_err(a, b) for a, b in zip(got, ref)),
+        schur_max_err_over_bound=max(
+            float(((a.double() - b.double()).abs()
+                   / c.clamp(min=1e-30)).max())
+            for a, b, c in zip(got, ref, bounds)))
+    if dev.type == "cuda":          # not timed in a rehearsal
+        out["ba_ms"] = host_ms(lambda: dist_ba(False), reps=5)
+        if rank == 0:
+            out["schur_row"] = shape_times({"shard": schur_row(operands)})[
+                "shard"]
+    barrier = torch.zeros(1, device=dev)
+    dist.all_reduce(barrier)
+    return out
+
+
+def drive_distributed(dev, seq, k, centers, loop_graph, sfm_stats, out_dir):
+    """The distributed phase: a world of one rank (NCCL) and a world of two
+    (gloo, both on the one card), each in spawned processes so that this
+    process's profiler and CUDA state stay clean (``_world_one``,
+    ``_world_two``).  Gates: the sharded BA within DIST_COST_RTOL /
+    DIST_POSE_ATOL of ``bundle_adjust`` at both worlds, kernel and plain;
+    the two ranks bit-identical; Schur at the shard shape within its f32
+    bound of its plain version and launched once an LM iteration; the
+    dense pose graph within the same tolerances of
+    ``optimize_pose_graph``; CG at DIST_CG_NODES: its cost under 5% of the
+    initial one, the card's within LOOP_CPU_COST_SHARE / LOOP_CPU_POSE_SHARE
+    of the CPU's; the meshed SfM and ``run_sfm --mesh 1`` within the SfM
+    gates, every kernel but remap launched.  Returns the CLI run's launches
+    and the Schur row at the shard shape."""
+    from photogrammetry_tpu_torch.parallel.multihost import run_world
+
+    frames_dir = f"{out_dir}/dist_frames"
+    write_frames(seq, frames_dir)
+    device_type = dev.type
+    backend = "cpu:gloo,cuda:nccl" if device_type == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    one = run_world(_world_one, 1, (device_type, seq, k, centers, frames_dir,
+                                    out_dir, loop_graph),
+                    backend=backend, timeout=DIST_TIMEOUT)[0]
+    t1 = time.perf_counter()
+    two = run_world(_world_two, DIST_WORLD, (device_type,), backend="gloo",
+                    timeout=DIST_TIMEOUT)
+    t2 = time.perf_counter()
+    bad = []
+
+    def compare(label, got, ref):
+        """The cost's relative and the poses' absolute difference, with a
+        finding where they pass the phase's tolerances."""
+        cost = abs(got["cost"] - ref["cost"]) / abs(ref["cost"])
+        pose = max(float(np.abs(got[n] - ref[n]).max()) for n in ("rs", "ts"))
+        if not (cost <= DIST_COST_RTOL and pose <= DIST_POSE_ATOL):
+            bad.append(f"{label}: cost {cost:.3g} poses {pose:.3g}")
+        return dict(cost_rel=cost, pose_abs=pose,
+                    identical=all(np.array_equal(got[n], ref[n])
+                                  for n in ("rs", "ts", "cost")))
+
+    iters = DIST_BA[2]
+    b1, b2 = one["ba"], [r["kernel"] for r in two]
+    ranks_identical = all(
+        all(np.array_equal(r[key][n], two[0][key][n]) for n in two[0][key])
+        for r in two[1:] for key in ("kernel", "plain"))
+    if not ranks_identical:
+        bad.append("world 2: the ranks' results differ")
+    ips = {f"world1_{label}": [iters * 1e3 / m for m in ms]
+           for label, ms in one["ba_ms"].items()}
+    if "ba_ms" in two[0]:
+        ips["world2_distributed"] = iters * 1e3 / two[0]["ba_ms"]
+    shard = two[0]
+    if not shard["schur_max_err_over_bound"] <= 1.0:
+        bad.append(f"Schur at the shard shape outside its bound: "
+                   f"{shard['schur_max_err_over_bound']}")
+    if any(r["schur_launches"] != iters for r in two) or \
+            one["schur_launches_a_call"] != iters:
+        bad.append("Schur not launched once an LM iteration a shard")
+    cg = one["cg"]
+    cg_cost = abs(cg["card"]["cost"] - cg["cpu"]["cost"]) / \
+        cg["cpu"]["initial_cost"]
+    # the correction the CPU run applied to the poses, as the loop phase
+    crs, cts, _ = circle_graph(DIST_CG_NODES, 0.04)
+    correction = max(float(np.abs(cg["cpu"]["rs"] - crs).max()),
+                     float(np.abs(cg["cpu"]["ts"] - cts).max()))
+    cg_pose = max(float(np.abs(cg["card"][n] - cg["cpu"][n]).max())
+                  for n in ("rs", "ts"))
+    if not (cg["card"]["cost"] < 0.05 * cg["card"]["initial_cost"]
+            and cg_cost <= LOOP_CPU_COST_SHARE
+            and cg_pose <= LOOP_CPU_POSE_SHARE * correction):
+        bad.append(f"CG at {DIST_CG_NODES} nodes: {cg}")
+    sfm, cli = one["sfm"], one["cli"]
+    for label, run in (("meshed SfM", sfm), ("run_sfm --mesh 1", cli)):
+        missing = [n for n, v in run["launches"].items()
+                   if v < 1 and n != "remap"]
+        if not (run["ate"] < 0.2 and run["landmarks"] > 80) or missing:
+            bad.append(f"{label} out of bounds: ATE {run['ate']}, "
+                       f"{run['landmarks']} landmarks, not launched "
+                       f"{missing}")
+    result = {
+        "phase": "distributed", "seconds_world1": t1 - t0,
+        "seconds_world2": t2 - t1, "backend_world1": one["backend"],
+        "ba": {"cameras": DIST_BA[0], "landmarks": DIST_BA[1],
+               "iterations": iters,
+               "world1_vs_single_kernel": compare(
+                   "world 1 kernel", b1["distributed_kernel"],
+                   b1["single_kernel"]),
+               "world1_vs_single_plain": compare(
+                   "world 1 plain", b1["distributed_plain"],
+                   b1["single_plain"]),
+               "world2_vs_single_kernel": compare(
+                   "world 2 kernel", b2[0], b1["single_kernel"]),
+               "world2_vs_single_plain": compare(
+                   "world 2 plain", two[0]["plain"], b1["single_plain"]),
+               "world2_kernel_vs_plain": compare(
+                   "world 2 kernel vs plain", b2[0], two[0]["plain"]),
+               "world2_ranks_identical": ranks_identical,
+               "cost": {"initial": b1["single_kernel"]["initial_cost"],
+                        "single": b1["single_kernel"]["cost"],
+                        "world1": b1["distributed_kernel"]["cost"],
+                        "world2": b2[0]["cost"]},
+               "iters_per_s": ips},
+        "schur_shard": {"shape": shard["shard_shape"],
+                        "launches_a_call": shard["schur_launches"],
+                        "max_abs_err": shard["schur_max_abs_err"],
+                        "max_err_over_bound":
+                            shard["schur_max_err_over_bound"],
+                        **shard.get("schur_row", {})},
+        "pose_graph_dense": dict(
+            nodes=int(loop_graph[0].shape[0]),
+            edges=int(loop_graph[2][0].shape[0]),
+            cost=one["pose_graph"]["distributed"]["cost"],
+            initial_cost=one["pose_graph"]["distributed"]["initial_cost"],
+            **compare("dense pose graph", one["pose_graph"]["distributed"],
+                      one["pose_graph"]["single"])),
+        "pose_graph_cg": dict(
+            nodes=DIST_CG_NODES, cost_share_of_initial=cg_cost,
+            pose_abs=cg_pose, correction=correction,
+            **{label: {n: cg[label][n] for n in ("cost", "initial_cost",
+                                                   "seconds")}
+               for label in cg}),
+        "sfm_meshed": {"seed": SFM_SEED, "ate": sfm["ate"],
+                       "landmarks": sfm["landmarks"],
+                       "ate_unmeshed": sfm_stats["ate"],
+                       "landmarks_unmeshed": sfm_stats["landmarks"],
+                       "launches": sfm["launches"]},
+        "run_sfm_mesh1": {n: cli[n] for n in ("ate", "landmarks", "quality",
+                                              "centers", "seconds",
+                                              "launches")}}
+    emit(result)
+    if bad:
+        raise AssertionError(f"distributed phase out of bounds: {bad}")
+    return cli["launches"], result["schur_shard"]
 
 
 def main() -> int:
@@ -2792,11 +3222,7 @@ def main() -> int:
 
     modules = {"fast_score": fast_stencil, "brief_bits": brief_pack,
                "hamming": hamming, "schur": schur, "remap": remap}
-    counters = {"fast_score": fast_stencil.fast_score_map_batch,
-                "brief_bits": brief_pack.brief_bits,
-                "hamming": hamming.hamming_distance_matrix,
-                "schur": schur.schur_products,
-                "remap": remap.remap_bilinear}
+    counters = kernel_counters()
     earlier = {n: c for n, c in counters.items() if n != "remap"}
     out, launches_forward = timed(
         "slice", drive_main_path, dev, frames, k, r_gt, pairs, cfg,
@@ -2832,7 +3258,10 @@ def main() -> int:
         schur_rows = timed("timing_sfm", time_sfm, dev, seq, k, earlier)
         timed("timing_dewarp_sfm", time_dewarp_sfm, dev, captured, k,
               cache_dir)
-        loop_rows = timed("timing_loop", time_loop, dev, loop)
+        loop_rows, loop_graph = timed("timing_loop", time_loop, dev, loop)
+        launches_dist, schur_shard = timed(
+            "distributed", drive_distributed, dev, seq, k, centers,
+            loop_graph, sfm_stats, cache_dir)
         new_paths = {
             "keyframes": timed("keyframes", drive_keyframes, dev, seq, k,
                                centers, earlier, cache_dir),
@@ -2902,12 +3331,16 @@ def main() -> int:
              launches_pipeline=launches_pipeline.get(n, 0),
              launches_loop=launches_loop.get(n, 0),
              launches_frontend_clis=launches_clis.get(n, 0),
+             launches_distributed=launches_dist.get(n, 0),
              **{f"launches_{path}": got.get(n, 0)
                 for path, got in new_paths.items()},
              new_shape=(dict(row=new_shape[n], **shape_rows[new_shape[n]])
                         if n in new_shape else None),
              cli_shape=(dict(row=cli_shape[n], **cli_rows[cli_shape[n]])
                         if n in cli_shape else None),
+             distributed_shape=(dict(row="schur_F%d_T%d" % tuple(
+                 schur_shard["shape"]), **schur_shard)
+                                if n == "schur" else None),
              **({"batched": batched} if n == "hamming" else {}))
         for n in counters]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,4 +1,5 @@
-"""photogrammetry_tpu_torch — the PyTorch/CUDA port of photogrammetry_tpu.
+"""photogrammetry_tpu_torch — the PyTorch/CUDA port of the JAX package
+photogrammetry_tpu/.
 
 The JAX package beside it is the reference; every module here mirrors the
 file of the same path there and is held against it by the
@@ -32,8 +33,12 @@ Layer map (bottom-up), as far as the port reaches:
   utils/    — padding container, stage timer and stats log, JAX-semantics
               reductions, JAX's threefry stream in numpy (prng: the BRIEF
               pair table)
-  cli/      — run_sfm (with the dewarp stage, checkpoints and loop
-              closure), de_warp, pipeline_demo,
+  parallel/ — meshes over torch.distributed ranks, the landmark-sharded
+              BA (the Schur kernel a shard) and the edge-sharded pose graph
+  native / config — the ctypes binding of native/host_ops.cpp; the
+              layered JSON + environment configuration
+  cli/      — run_sfm (with the dewarp stage, checkpoints, loop closure
+              and --mesh), bench_scaling, de_warp, pipeline_demo,
               calibrate_dewarp, sweep_sfm_seeds, and the two-image tools
               detect_features, cluster_features, match_keypoints,
               estimate_pose, image_editing

@@ -7,7 +7,8 @@
         [--oriented-brief] [--pyramid-octaves N] \\
         [--checkpoint PATH [--no-resume]] \\
         [--keyframe-disp PX | --submap-frames N [--submap-overlap N] ...] \\
-        [--loop-closure [--loop-mode revisit] [--loop-min-gap N] ...]
+        [--loop-closure [--loop-mode revisit] [--loop-min-gap N] ...] \\
+        [--mesh N]
 
 A directory of frames (sorted), or the built-in synthetic star pan with
 exact ground truth for an ATE report → (with ``--distortion-coeffs``) the
@@ -24,18 +25,25 @@ BA runs after it instead, with the loop matches fused into its tracks) →
 ``cloud.ply`` + ``trajectory.json`` and one JSON report line;
 ``--oriented-brief`` steers the BRIEF pairs by each keypoint's
 orientation, ``--pyramid-octaves`` detects and describes on power-of-two
-octaves.  The JAX CLI's ``--mesh`` and ``--precompute-matching`` are not
-ported: they raise NotImplementedError.
+octaves.  ``--mesh N`` shards the windowed and final BA's landmarks over a
+world of N ranks (``parallel/``): on ``cuda`` one rank a card over NCCL,
+with ``--device cpu`` N gloo processes; the CLI spawns them, or joins the
+world a launcher such as ``torchrun`` set up (``WORLD_SIZE``).  Every rank
+runs the whole pipeline (SPMD) and rank 0 writes the outputs.  The JAX
+CLI's ``--precompute-matching`` is not ported: it raises
+NotImplementedError.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 from types import SimpleNamespace
 
 from photogrammetry_tpu_torch.cli.common import load_gray
 
-NOT_PORTED = ("--mesh", "--precompute-matching")
+NOT_PORTED = ("--precompute-matching",)
 LOOP_SEED = 7   # the loop-edge measurement's draws (JAX: PRNGKey(7))
 LINK_SEED = 11  # the loop links' epipolar gate (JAX: PRNGKey(11))
 
@@ -247,26 +255,76 @@ def main(argv=None) -> int:
                     help="cross-seam global refinement rounds after the "
                          "pose graph (0 disables; with --loop-closure "
                          "they run after it)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help=">0 shards the windowed and final BA's landmarks "
+                         "over a world of N ranks: one a card over NCCL on "
+                         "cuda, N gloo processes with --device cpu")
     args, rest = ap.parse_known_args(argv)
     for arg in rest:
         if arg.split("=")[0] in NOT_PORTED:
             raise NotImplementedError(
                 f"run_sfm {arg.split('=')[0]} is not ported yet; use "
-                f"photogrammetry_tpu.cli.run_sfm")
+                f"the JAX package's cli/run_sfm.py")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.restarts > 1 and args.checkpoint:
         ap.error("--restarts and --checkpoint conflict: restart selection "
                  "re-runs from scratch and cannot resume a snapshot")
+    if args.checkpoint and args.mesh > 1:
+        ap.error("--checkpoint and --mesh > 1 conflict: every rank would "
+                 "write the one snapshot file")
     if args.checkpoint and (args.keyframe_disp > 0 or args.submap_frames > 0):
         ap.error("--checkpoint is only supported in the plain incremental "
                  "mode: --keyframe-disp and --submap-frames runs take no "
                  "snapshots (their state spans multiple sub-reconstructions)")
 
+    import torch
+    import torch.distributed as dist
+
+    from photogrammetry_tpu_torch import resolve_device
+    from photogrammetry_tpu_torch.parallel.mesh import (
+        default_backend, init_world, make_mesh, mesh_device,
+    )
+    from photogrammetry_tpu_torch.parallel.multihost import run_world
+
+    device = resolve_device(args.device)     # fail before loading frames
+    if args.mesh <= 0:
+        return _run(args, ap, device, None)
+    if device.type == "cuda" and args.mesh > torch.cuda.device_count():
+        ap.error(f"--mesh {args.mesh} needs {args.mesh} devices; only "
+                 f"{torch.cuda.device_count()} visible")
+    backend = default_backend(device.type)
+    own = not dist.is_initialized()
+    if own and args.mesh > 1 and "WORLD_SIZE" not in os.environ:
+        # the ranks, spawned here; each re-enters main in its world
+        argv = sys.argv[1:] if argv is None else list(argv)
+        run_world(_mesh_rank, args.mesh, (argv,), backend=backend,
+                  timeout=None, threads=1 if device.type == "cpu" else None)
+        return 0
+    if own:     # under a launcher, or a world of one
+        init_world(backend)
+    try:
+        if dist.get_world_size() != args.mesh:
+            ap.error(f"--mesh {args.mesh} in a world of "
+                     f"{dist.get_world_size()} ranks")
+        mesh = make_mesh(device_type=device.type)
+        return _run(args, ap, mesh_device(mesh), mesh)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def _mesh_rank(rank: int, argv: list) -> int:
+    """One rank of a spawned ``--mesh`` world: the CLI in its world."""
+    return main(argv)
+
+
+def _run(args, ap, device, mesh) -> int:
+    """The pipeline on ``device``; with ``mesh`` one rank of it, and rank 0
+    writes the cloud, the trajectory, the report and the stats."""
     import numpy as np
     import torch
 
-    from photogrammetry_tpu_torch import resolve_device
     from photogrammetry_tpu_torch.io.ply import write_ply
     from photogrammetry_tpu_torch.sfm.frontend import FrontendConfig
     from photogrammetry_tpu_torch.sfm.incremental import (
@@ -280,7 +338,7 @@ def main(argv=None) -> int:
         StageTimer, append_stats,
     )
 
-    device = resolve_device(args.device)     # fail before loading frames
+    writer = mesh is None or mesh.get_rank() == 0
     timer = StageTimer()
     gt_centers = None
     if args.frames is None:
@@ -322,7 +380,7 @@ def main(argv=None) -> int:
         pyramid_octaves=octaves,
         # headroom for the octave-merged keypoint sets
         track_capacity=1024 * octaves,
-        collect_diagnostics=bool(args.diagnostics))
+        collect_diagnostics=bool(args.diagnostics), mesh=mesh)
     with timer.stage("sfm"):
         if args.keyframe_disp > 0:
             from photogrammetry_tpu_torch.sfm.keyframes import (
@@ -360,6 +418,8 @@ def main(argv=None) -> int:
             loop_report = close_loops_stage(frames, res, k, cfg, args,
                                             device)
 
+    if not writer:
+        return 0
     write_ply(args.cloud, res.points)
     centers = res.camera_centers
     traj = {"centers": centers.tolist(), "rotations": res.rs.tolist(),

@@ -109,18 +109,18 @@ def _inv3(m):
     return adj / det[..., None, None]
 
 
-def schur_solve(r, j_cam, j_pt, lam, fixed_cameras,
-                h_prior=None, b_prior=None, plain: bool = False):
-    """One damped Gauss-Newton step via the Schur complement.
+def landmark_terms(r, j_cam, j_pt, lam, plain: bool = False):
+    """The landmark-side terms of one damped Gauss-Newton step, summed over
+    the landmarks of ``r`` (all of them, or one shard's).
 
     r (F,T,2) weighted residuals; j_cam (F,T,2,6); j_pt (F,T,2,3); lam the
-    LM damping (scalar tensor); fixed_cameras (F,) float, 0 freezes a
-    camera.  h_prior (F,) / b_prior (F,6): the pose-prior block w^2 I and
-    its right-hand side.  ``plain=True`` forms the Schur products with
-    their plain version on any device.  Returns (delta_cam (F,6),
-    delta_pt (T,3)).
+    LM damping (scalar tensor).  H_pp is block-diagonal, so each landmark's
+    damped block and its inverse stay with the landmark.  ``plain=True``
+    forms the Schur products with their plain version on any device.
+    Returns the camera-side sums (h_cc (F,6,6) undamped, b_c (F,6), s_off
+    (F,F,6,6) = W Hpp^-1 W^T, corr (F,6) = W Hpp^-1 b_p) and what
+    ``back_substitute`` needs (w_cp (F,T,6,3), b_p (T,3), hpp_inv (T,3,3)).
     """
-    f = r.shape[0]
     dev = r.device
     h_cc = torch.einsum("ftri,ftrj->fij", j_cam, j_cam)          # (F,6,6)
     h_pp = torch.einsum("ftri,ftrj->tij", j_pt, j_pt)            # (T,3,3)
@@ -128,20 +128,26 @@ def schur_solve(r, j_cam, j_pt, lam, fixed_cameras,
     b_c = -torch.einsum("ftri,ftr->fi", j_cam, r)                # (F,6)
     b_p = -torch.einsum("ftri,ftr->ti", j_pt, r)                 # (T,3)
 
-    eye6 = torch.eye(6, device=dev)
     eye3 = torch.eye(3, device=dev)
-    if h_prior is not None:
-        h_cc = h_cc + h_prior[:, None, None] * eye6
-        b_c = b_c + b_prior
-    h_cc = h_cc + lam * (h_cc * eye6) + 1e-8 * eye6
     h_pp = h_pp + lam * (h_pp * eye3) + 1e-8 * eye3
     hpp_inv = _inv3(h_pp)                                         # (T,3,3)
 
-    # reduced camera system S = H_cc - W Hpp^-1 W^T  (dense (6F, 6F))
+    # the off-diagonal products of S = H_cc - W Hpp^-1 W^T
     w_hinv = torch.einsum("ftij,tjk->ftik", w_cp, hpp_inv)       # (F,T,6,3)
     products = schur_products_plain if plain else schur_products
     s_off, corr = products(w_hinv.contiguous(), w_cp.contiguous(),
                            b_p.contiguous())
+    return (h_cc, b_c, s_off, corr), (w_cp, b_p, hpp_inv)
+
+
+def camera_step(h_cc, b_c, s_off, corr, lam, fixed_cameras):
+    """The camera increments (F,6) from the reduced camera system
+    S = H_cc - s_off (dense (6F, 6F)), right-hand side b_c - corr: H_cc
+    damped by lam, gauge cameras (``fixed_cameras`` 0) frozen."""
+    f = h_cc.shape[0]
+    dev = h_cc.device
+    eye6 = torch.eye(6, device=dev)
+    h_cc = h_cc + lam * (h_cc * eye6) + 1e-8 * eye6
     ar = torch.arange(f, device=dev)
     s = -s_off
     s[ar, ar] = s[ar, ar] + h_cc
@@ -155,12 +161,33 @@ def schur_solve(r, j_cam, j_pt, lam, fixed_cameras,
 
     s_mat = s.permute(0, 2, 1, 3).reshape(6 * f, 6 * f)
     delta_c = torch.linalg.solve_ex(s_mat, rhs.reshape(-1, 1))[0]
-    delta_c = delta_c.reshape(f, 6) * fc[:, None]
+    return delta_c.reshape(f, 6) * fc[:, None]
 
-    # back-substitute landmarks
+
+def back_substitute(w_cp, b_p, hpp_inv, delta_c):
+    """The landmark increments (T,3) given the camera increments."""
     rhs_p = b_p - torch.einsum("ftij,fi->tj", w_cp, delta_c)
-    delta_p = (hpp_inv @ rhs_p[..., None])[..., 0]
-    return delta_c, delta_p
+    return (hpp_inv @ rhs_p[..., None])[..., 0]
+
+
+def schur_solve(r, j_cam, j_pt, lam, fixed_cameras,
+                h_prior=None, b_prior=None, plain: bool = False):
+    """One damped Gauss-Newton step via the Schur complement.
+
+    r (F,T,2) weighted residuals; j_cam (F,T,2,6); j_pt (F,T,2,3); lam the
+    LM damping (scalar tensor); fixed_cameras (F,) float, 0 freezes a
+    camera.  h_prior (F,) / b_prior (F,6): the pose-prior block w^2 I and
+    its right-hand side.  ``plain=True`` forms the Schur products with
+    their plain version on any device.  Returns (delta_cam (F,6),
+    delta_pt (T,3)).
+    """
+    (h_cc, b_c, s_off, corr), back = landmark_terms(r, j_cam, j_pt, lam,
+                                                    plain)
+    if h_prior is not None:
+        h_cc = h_cc + h_prior[:, None, None] * torch.eye(6, device=r.device)
+        b_c = b_c + b_prior
+    delta_c = camera_step(h_cc, b_c, s_off, corr, lam, fixed_cameras)
+    return delta_c, back_substitute(*back, delta_c)
 
 
 def apply_step(state: BAState, delta_c, delta_p,

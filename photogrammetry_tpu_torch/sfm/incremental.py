@@ -28,10 +28,15 @@ snapshots every ``checkpoint_every`` frames and at the last frame
 (``store/checkpoint.py``, the JAX package's file format), deferred frames
 included, and a rerun resumes after the snapshot's frame.
 
+With ``SfmConfig.mesh`` (a ``parallel.make_mesh`` mesh) the windowed and
+the final BA run as ``distributed_bundle_adjust``, landmarks sharded over
+the mesh's "tracks" ranks; every rank runs the rest of the run identically
+with the same seeds (SPMD), so every rank holds the same result.
+
 Left out of the port (the JAX package's workarounds for TPU dispatch
-cost, and its distributed mode): ``precompute_matching``,
-``fused_steady_steps`` / ``run_incremental_sfm_fused``, ``read_free``,
-``export=False`` / ``DeviceSfmResult`` and ``mesh``.
+cost): ``precompute_matching``, ``fused_steady_steps`` /
+``run_incremental_sfm_fused``, ``read_free`` and ``export=False`` /
+``DeviceSfmResult``.
 """
 from __future__ import annotations
 
@@ -70,9 +75,10 @@ from photogrammetry_tpu_torch.utils.reductions import nanmedian
 
 @dataclass(frozen=True)
 class SfmConfig:
-    """The JAX SfmConfig without its TPU-dispatch and distributed fields
-    (see the module docstring); the field comments of the JAX package hold
-    for the rest."""
+    """The JAX SfmConfig without its TPU-dispatch fields (see the module
+    docstring); the field comments of the JAX package hold for the rest.
+    ``mesh``: a ``torch.distributed`` DeviceMesh (``parallel.make_mesh``)
+    for the sharded BA, or None."""
     frontend: FrontendConfig = FrontendConfig(
         suppression_radius=4.0, hamming_threshold=80, max_keypoints=512,
         detection_threshold=20.0)
@@ -106,6 +112,7 @@ class SfmConfig:
     # keypoint capacity becomes octaves x frontend.max_keypoints, so scale
     # track_capacity with it
     pyramid_octaves: int = 1
+    mesh: object = None
 
 
 def _set_row(x: torch.Tensor, i, v) -> torch.Tensor:
@@ -459,10 +466,20 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
     pending_support = None  # device scalar, read at export
 
     def full_ba(table, rs, ts, fixed, iterations):
-        res = bundle_adjust(BAState(rs=rs, ts=ts, points=table.points),
-                            _ba_problem(table, kmat),
-                            num_iterations=iterations, fixed_cameras=fixed,
-                            plain=plain)
+        state = BAState(rs=rs, ts=ts, points=table.points)
+        if config.mesh is not None:
+            # imported here: torch.distributed.tensor takes a second
+            from photogrammetry_tpu_torch.parallel.dist_ba import (
+                distributed_bundle_adjust,
+            )
+
+            res = distributed_bundle_adjust(
+                state, _ba_problem(table, kmat), config.mesh,
+                num_iterations=iterations, fixed_cameras=fixed, plain=plain)
+        else:
+            res = bundle_adjust(state, _ba_problem(table, kmat),
+                                num_iterations=iterations,
+                                fixed_cameras=fixed, plain=plain)
         costs.append(res.cost)
         return res.state.rs, res.state.ts, \
             table._replace(points=res.state.points)

@@ -109,11 +109,9 @@ def _fixed(n: int, fixed_nodes, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(fixed_nodes, device=like.device).to(like.dtype)
 
 
-def _lm_step(r, j_i, j_j, ii, jj, w, fn, lam, dim: int):
-    """The damped Gauss-Newton increment (N, dim) of one LM step: the
-    weighted normal equations of all edges, assembled densely, the
-    diagonal damped by lam * max(diag, 1e-6), frozen nodes pinned."""
-    n = fn.shape[0]
+def _normal_equations(r, j_i, j_j, ii, jj, w, n: int, dim: int):
+    """The weighted normal equations (H (N dim, N dim), b (N dim,)) of the
+    given edges, assembled densely from the stacked Jacobian."""
     sw = torch.sqrt(w)[:, None]
     r = r * sw
     j_i = j_i * sw[..., None]
@@ -123,8 +121,13 @@ def _lm_step(r, j_i, j_j, ii, jj, w, fn, lam, dim: int):
     jac = (eye_n[ii][:, None, :, None] * j_i[:, :, None, :]
            + eye_n[jj][:, None, :, None] * j_j[:, :, None, :])
     jac = jac.reshape(-1, n * dim)
-    h = jac.T @ jac
-    b = -(jac.T @ r.reshape(-1))
+    return jac.T @ jac, -(jac.T @ r.reshape(-1))
+
+
+def _damped_step(h, b, fn, lam, dim: int):
+    """The increment (N, dim) of the normal equations (h, b): the diagonal
+    damped by lam * max(diag, 1e-6), frozen nodes pinned."""
+    n = fn.shape[0]
     f = fn.repeat_interleave(dim)
     diag = torch.diagonal(h)
     h = h + torch.diag(lam * torch.clamp(diag, min=1e-6))
@@ -132,6 +135,13 @@ def _lm_step(r, j_i, j_j, ii, jj, w, fn, lam, dim: int):
     b = b * f
     delta = torch.linalg.solve_ex(h, b[:, None])[0][:, 0]
     return delta.reshape(n, dim) * fn[:, None]
+
+
+def _lm_step(r, j_i, j_j, ii, jj, w, fn, lam, dim: int):
+    """The damped Gauss-Newton increment (N, dim) of one LM step over all
+    edges."""
+    h, b = _normal_equations(r, j_i, j_j, ii, jj, w, fn.shape[0], dim)
+    return _damped_step(h, b, fn, lam, dim)
 
 
 def _lm(cost_of, step, state, init_lambda: float, num_iterations: int):

@@ -741,3 +741,43 @@ def test_cluster_and_matchers_card_equals_cpu(dev):
     for call in calls:
         for a, b in zip(call(dev), call(torch.device("cpu"))):
             assert torch.equal(a.cpu(), b)
+
+
+def test_distributed_ba_world_of_one_on_the_card(dev):
+    """The sharded BA in a world of one NCCL rank: the Schur kernel once an
+    LM iteration, and the result bit for bit ``bundle_adjust``'s (an
+    all-reduce over one rank is a copy)."""
+    import torch.distributed as dist
+
+    from photogrammetry_tpu_torch.parallel import (
+        distributed_bundle_adjust, make_mesh,
+    )
+    from photogrammetry_tpu_torch.sfm.ba import (
+        BAProblem, BAState, bundle_adjust, project,
+    )
+
+    rng = np.random.default_rng(0)
+    f, t = 6, 512
+    k = torch.tensor([[300.0, 0, 128], [0, 300.0, 96], [0, 0, 1]],
+                     device=dev)
+    pts = torch.tensor(rng.uniform(-1, 1, (t, 3)) + [0, 0, 5],
+                       dtype=torch.float32, device=dev)
+    rs = torch.eye(3, device=dev).repeat(f, 1, 1)
+    ts = torch.tensor(rng.normal(0, 0.05, (f, 3)), dtype=torch.float32,
+                      device=dev)
+    obs = project(rs, ts, pts, k)[0] + torch.tensor(
+        rng.normal(0, 0.3, (f, t, 2)), dtype=torch.float32, device=dev)
+    state = BAState(rs, ts, pts + torch.tensor(
+        rng.normal(0, 0.03, (t, 3)), dtype=torch.float32, device=dev))
+    prob = BAProblem(obs, torch.ones((f, t), dtype=torch.bool, device=dev),
+                     k)
+    mesh = make_mesh(device_type="cuda")
+    try:
+        before = schur.schur_products.launches
+        got = distributed_bundle_adjust(state, prob, mesh, num_iterations=8)
+        assert schur.schur_products.launches == before + 8
+        ref = bundle_adjust(state, prob, num_iterations=8)
+        for a, b in zip((*got.state, got.cost), (*ref.state, ref.cost)):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

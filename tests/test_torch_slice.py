@@ -14,6 +14,7 @@ f32 rounding alone moves it by degrees.
 """
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -192,6 +193,18 @@ def test_port_sources_import_no_jax():
         text = path.read_text() + "\n"
         for f in forbidden:
             assert f not in text, (path, f)
+
+
+def test_port_sources_name_no_jax_module():
+    """Not even prose names a module path of the JAX package: the port's
+    sources and chip_smoke.py give no ``photogrammetry_tpu.<name>`` to a
+    reader or to a search for imports of it."""
+    pattern = re.compile(r"import jax|from jax|photogrammetry_tpu\.|"
+                         r"photogrammetry_tpu import")
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [(path.name, m.group()) for path in files
+            for m in pattern.finditer(path.read_text())]
+    assert not hits, hits
 
 
 def test_entry_points_raise_without_a_card(scene, state):
