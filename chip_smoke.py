@@ -62,6 +62,16 @@ Phases, each printing one JSON line with its seconds:
      plain; ATE < 0.2 scene units and > 80 landmarks in both runs (the
      bounds of tests/test_incremental.py); the largest camera-center
      difference between the two runs is printed, not gated;
+     precompute: the same robust run with ``precompute_matching`` (every
+     (t, t-1) and (t, t-2) pair matched a chunk of 16 pairs a launch of
+     the batched Hamming entry: two launches a restart, the single-pair
+     entry none), launches counted, then with ``plain=True``: 12 poses,
+     > 80 landmarks, ATE < PRECOMPUTE_ATE_MAX (what the JAX package meets
+     with the flag at SFM_SEED, printed beside); ``precompute_matching``
+     kernel vs plain bit-identical at K = 512 and, on the two-octave
+     pyramid's features, K = 1024; the batched entry at Q = 16 and the
+     tail's Q = 5 (graph replay, call, plain, batched ``cdist(p=0)``,
+     bound on the bits and masks of the frames the chunk reads);
   8. dewarp_sfm: the lens-dewarp path at full width.  The 12 frames are
      barrel-distorted once with the synthetic map at the reference
      coefficients (what that camera would have captured), then go through
@@ -202,8 +212,12 @@ Phases, each printing one JSON line with its seconds:
      merged tracks and loop links under the ground-truth trajectory, with
      the kernels (profiled: its busy time and idle share) and with the
      plain versions (more than SUBMAP_REFINE_MIN_LANDMARKS landmarks,
-     poses within SUBMAP_REFINE_POSE_SHARE of its correction).  These
-     three come last: nothing reads the profiler after them.
+     poses within SUBMAP_REFINE_POSE_SHARE of its correction);
+     timing_precompute: one ``run_incremental_sfm`` at SFM_SEED with
+     ``precompute_matching`` off and on, in turns: wall and launches
+     (unprofiled; on: the batched entry 2, the single-pair entry 0; off:
+     0 and 21), busy and idle share (one profiler session over both).
+     These four come last: nothing reads the profiler after them.
 Then the ``{"kernels": [...]}`` line (each kernel's launches on every
 path, ``launches_loop`` on the loop-closure phase, ``launches_keyframes``,
 ``launches_submaps`` and ``launches_pyramid`` on the new ones, each of
@@ -212,7 +226,9 @@ FAST, BRIEF and Hamming > 0 there; ``launches_distributed``, each of
 FAST, BRIEF, Hamming and Schur > 0 on ``run_sfm --mesh 1``, and Schur's
 row at the shard shape as ``distributed_shape``; the row at the new shape as
 ``new_shape``, at the CLIs' as ``cli_shape``; Hamming's batched entry
-as its ``batched`` row) and, last, the ok line.  Any failure
+as its ``batched`` row and, with its precompute-path launches and its
+times at Q = 16, K = 512, as a row of its own, ``hamming_pairs``;
+``launches_precompute`` on every row) and, last, the ok line.  Any failure
 raises and exits non-zero before the ok line.  Needs one CUDA card; exits
 2 without one.
 """
@@ -351,6 +367,22 @@ PARITY_OCTAVES = 2
 # well spaced leaves a thin map (against the full run's ~155), as the
 # JAX package's sfm/keyframes.py says of such sequences.  So the phase
 # reports the ATE and does not gate it, and keeps the SfM phase's seed.
+# The precompute phase's SfM gate.  With precompute_matching every pair's
+# RANSAC gate draws from its own generator, so the run at SFM_SEED takes
+# other draws than the sfm phase's, and the flag costs accuracy in both
+# packages.  run_incremental_sfm_robust(restarts=3, precompute_matching=
+# True) on these frames, seeds 0-5: the JAX package on the CPU
+# (experiments/precompute_seeds/run.py) ATE 0.090, 0.266, 0.065, 0.101,
+# 0.074, 0.228 (without the flag at most 0.144); the port on an NVIDIA
+# H100 80GB HBM3 at 700 W (cli/sweep_sfm_seeds.py --frames 12 --size 1080
+# 1920 --focal 1560 --seeds 6 --restarts 3 --precompute-matching) 0.017,
+# 0.332, 0.011, 0.408, 0.120, 0.024 with the kernels and 0.018, 0.172,
+# 0.083, 0.242, 0.025, 0.024 with --plain, 101-158 landmarks.  SFM_SEED
+# is JAX's worst seed under the flag: the phase holds the port to JAX's
+# reading there with a margin of half, 12 poses, > 80 landmarks and an
+# ATE under 1.5 x 0.266, and prints JAX's reading beside.
+PRECOMPUTE_JAX_ATE = 0.266
+PRECOMPUTE_ATE_MAX = 1.5 * PRECOMPUTE_JAX_ATE
 KF_DISP_PX = 20.0
 KF_SEED = SFM_SEED
 # the submaps phase: run_sfm --submap-frames 12 --submap-overlap 4 on the
@@ -1579,6 +1611,170 @@ def time_dewarp_sfm(dev, captured, k, cache_dir):
           "top_device_ops": top})
 
 
+def drive_precompute(dev, seq, k, centers, counters, single_scale):
+    """The precompute phase: ``run_incremental_sfm_robust(restarts=3)``
+    with ``precompute_matching`` on the 12 frames at SFM_SEED, launches
+    counted (the batched Hamming entry once a chunk of pairs: two a
+    restart), then with ``plain=True``: 12 poses, > 80 landmarks and ATE
+    < PRECOMPUTE_ATE_MAX in both; ``precompute_matching`` on the kernel
+    run's features with the kernels and with the plain versions under one
+    generator seed, every field bit-identical, at one octave (K = 512)
+    and two (K = 1024); the batched entry at the first chunk's shape
+    (Q = 16, K = 512) and the tail's (Q = 5) timed with its bound (the
+    bits and masks of the frames the chunk reads).  Returns the robust
+    run's launches and the batched entry's rows."""
+    import torch
+
+    from photogrammetry_tpu_torch.kernels import hamming
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        make_pairs, precompute_frontend, precompute_matching, sequence_pairs,
+    )
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm_robust,
+    )
+    from photogrammetry_tpu_torch.sfm.metrics import trajectory_ate
+
+    cfg = SfmConfig(collect_diagnostics=False, precompute_matching=True)
+    fc = cfg.frontend
+    counters = {**counters,
+                "hamming_pairs": hamming.hamming_distance_matrix_pairs}
+    runs = {}
+    for plain in (False, True):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = run_incremental_sfm_robust(seq, k, cfg, seed=SFM_SEED,
+                                         restarts=3, device=dev, plain=plain)
+        sync(dev)
+        runs["plain" if plain else "kernels"] = dict(
+            seconds=time.perf_counter() - t0,
+            ate=trajectory_ate(res.rs, res.ts, centers),
+            landmarks=len(res.points), quality=res.quality,
+            centers=len(res.camera_centers),
+            launches={n: c.launches for n, c in counters.items()})
+    launches = runs["kernels"]["launches"]
+
+    # PrecompMatches kernel vs plain on the same features and draws
+    frames = torch.as_tensor(seq, dtype=torch.float32, device=dev)
+    identical = {}
+    for octaves in (1, PYRAMID_OCTAVES):
+        ocfg = SfmConfig(pyramid_octaves=octaves)
+        feats = precompute_frontend(frames, make_pairs(fc, device=dev), fc,
+                                    chunk=ocfg.frontend_chunk,
+                                    octaves=octaves)
+        pm = [precompute_matching(
+            feats, fc, torch.Generator(device=dev).manual_seed(SFM_SEED),
+            len(seq), ocfg.ransac_threshold, ocfg.ransac_samples // 2,
+            chunk=ocfg.frontend_chunk, plain=plain)
+            for plain in (False, True)]
+        identical[f"K{feats.bits.shape[1]}"] = dict(
+            identical=all(torch.equal(a, b) for a, b in zip(*pm)),
+            gated_matches=int(pm[0].good1.sum() + pm[0].good2.sum()))
+        if octaves == 1:
+            sfm_feats = feats
+
+    # the batched entry at the chunks' shapes, beside its bound
+    pair_list = sequence_pairs(len(seq))
+    bits = sfm_feats.bits.contiguous()
+    masks = sfm_feats.points.mask.contiguous()
+    _, kk, p = bits.shape
+    rows = {}
+    for lo, hi in ((0, cfg.frontend_chunk), (cfg.frontend_chunk,
+                                             len(pair_list))):
+        ii = torch.tensor([t for t, _ in pair_list[lo:hi]],
+                          dtype=torch.int32, device=dev)
+        jj = torch.tensor([t - dt for t, dt in pair_list[lo:hi]],
+                          dtype=torch.int32, device=dev)
+        q = hi - lo
+        # the bits and masks of the frames this chunk's pairs read, once
+        nf = len(set(ii.tolist()) | set(jj.tolist()))
+        b_ms, b_by = bound_ms(q * kk * kk * 4 + nf * kk * p + nf * kk + 8 * q,
+                              2 * q * kk * kk * p, INT8_OPS_PER_S)
+        fa, fb = bits[ii.long()].float(), bits[jj.long()].float()
+        rows[f"Q{q}_K{kk}"] = dict(
+            pairs=q, frames_read=nf, keypoints=kk, bits=p, bound_ms=b_ms,
+            bound_by=b_by,
+            graph_ms=graph_ms(lambda ii=ii, jj=jj:
+                              hamming.hamming_distance_matrix_pairs(
+                                  bits, masks, ii, jj)),
+            call_ms=cuda_ms(lambda ii=ii, jj=jj:
+                            hamming.hamming_distance_matrix_pairs(
+                                bits, masks, ii, jj)),
+            plain_call_ms=cuda_ms(
+                lambda ii=ii, jj=jj: hamming.hamming_distance_matrix_pairs_plain(
+                    bits, masks, ii, jj)),
+            library_call_ms=cuda_ms(lambda fa=fa, fb=fb:
+                                    torch.cdist(fa, fb, p=0)))
+
+    result = {"phase": "precompute", "frames": list(seq.shape),
+              "seed": SFM_SEED, "runs": runs,
+              "single_scale": {key: single_scale[key] for key in
+                               ("ate", "landmarks", "quality")},
+              "jax_cpu_ate": PRECOMPUTE_JAX_ATE,
+              "precomp_matches": identical, "rows": rows}
+    emit(result)
+    bad = []
+    for label, run in runs.items():
+        if (run["centers"] != len(seq)
+                or not run["ate"] < PRECOMPUTE_ATE_MAX
+                or run["landmarks"] <= 80):
+            bad.append(f"{label} SfM out of bounds")
+    if launches["hamming_pairs"] != 2 * 3:
+        bad.append(f"batched Hamming: {launches['hamming_pairs']} launches,"
+                   f" expected two a restart")
+    for name in ("fast_score", "brief_bits", "schur"):
+        if launches[name] < 1:
+            bad.append(f"{name} not launched")
+    bad += [f"PrecompMatches differ kernel vs plain at {key}"
+            for key, v in identical.items() if not v["identical"]]
+    if bad:
+        raise AssertionError(f"precompute out of bounds: {bad}")
+    return launches, rows
+
+
+def time_precompute(dev, seq, k, counters):
+    """timing_precompute, the script's last profiler session: one
+    ``run_incremental_sfm`` at SFM_SEED with ``precompute_matching`` off
+    and on, in turns: wall and launches from unprofiled calls (off, on),
+    busy and idle share from one profiler session over both (on, off).
+    The flag on launches the batched Hamming entry twice and the
+    single-pair entry never; off, the reverse (21 single launches).
+    Placed before the timing phases, a profiler session over whole SfM
+    runs left the first of their sessions empty, so it comes after
+    them."""
+    from photogrammetry_tpu_torch.kernels import hamming
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm,
+    )
+
+    counters = {**counters,
+                "hamming_pairs": hamming.hamming_distance_matrix_pairs}
+
+    def once(flag):
+        return run_incremental_sfm(seq, k, SfmConfig(
+            collect_diagnostics=False, precompute_matching=flag),
+            seed=SFM_SEED, device=dev)
+
+    timing = {}
+    for label in ("off", "on"):
+        for c in counters.values():
+            c.launches = 0
+        wall = wall_ms(lambda label=label: once(label == "on"), dev)
+        timing[label] = dict(
+            launches={n: c.launches for n, c in counters.items()},
+            wall_ms=wall)
+    _, profiled = profiled_runs(
+        [lambda: once(True), lambda: once(False)], dev, len(seq),
+        walls=[timing["on"]["wall_ms"], timing["off"]["wall_ms"]], top=False)
+    timing["on"]["profiled"], timing["off"]["profiled"] = profiled
+    emit({"phase": "timing_precompute", "seed": SFM_SEED, **timing})
+    on, off = timing["on"]["launches"], timing["off"]["launches"]
+    if (on["hamming_pairs"], on["hamming"]) != (2, 0) \
+            or (off["hamming_pairs"], off["hamming"]) != (0, 21):
+        raise AssertionError(f"launches with the flag on / off: {timing}")
+    return timing
+
+
 def time_sfm(dev, frames, k, counters):
     """Phase 8, SfM part: the Schur kernel at the SfM path's and
     bench_all.py's shapes; bundle_adjust iterations/s; one
@@ -1988,20 +2184,36 @@ def drive_checkpoint(dev, seq, k, centers, counters, out_dir):
 
 def profiled_run(fn, dev, frames: int, wall=None, top: bool = True):
     """(fn's result, its timing) for ONE call of ``fn`` over ``frames``
-    frames under torch.profiler's device activity (one session): the wall
-    ms (``wall`` when the caller measured an unprofiled call, else the
-    host clock inside the session, the profiler's CUPTI tracing
-    included), frames/s, device busy ms (the raw device events' durations
-    summed: the profiler's own event list, ``key_averages``, takes far
-    longer to build for a whole SfM run), idle share, with ``top`` the top
-    device ops by name, and the ms spent after the call reading the
-    trace.  Busy time and ops are None where the profiler recorded nothing
-    (and on a CPU rehearsal)."""
+    frames under torch.profiler's device activity: ``profiled_runs`` of
+    one function."""
+    outs, timings = profiled_runs([fn], dev, frames, [wall], top)
+    return outs[0], timings[0]
+
+
+# The device kernel that separates the calls of one profiler session
+# (torch.cuda._sleep's)
+MARKER_KERNEL = "spin_kernel"
+
+
+def profiled_runs(fns, dev, frames: int, walls=None, top: bool = True):
+    """(results, timings): one call of each of ``fns`` over ``frames``
+    frames, in turn, under ONE torch.profiler session of device activity,
+    the calls parted on the device by a marker kernel.  Each timing: the
+    wall ms (the caller's unprofiled one from ``walls`` where given, else
+    the host clock inside the session, the profiler's CUPTI tracing
+    included), frames/s, device busy ms (the raw device events'
+    durations summed: the profiler's own event list, ``key_averages``,
+    takes far longer to build for a whole SfM run), idle share, with
+    ``top`` the top device ops by name, and the ms spent after the calls
+    reading the trace.  Busy time and ops are None where the profiler
+    recorded nothing (and on a CPU rehearsal)."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    walls = walls or [None] * len(fns)
+
     def timing(wall_ms, busy=None, ops=None, post=None):
-        wall_ms = wall if wall is not None else wall_ms
         return dict(frames=frames, wall_ms=wall_ms,
                     frames_per_s=frames * 1e3 / wall_ms,
                     device_busy_ms=busy,
@@ -2009,31 +2221,54 @@ def profiled_run(fn, dev, frames: int, wall=None, top: bool = True):
                                        else max(0.0, 1 - busy / wall_ms)),
                     top_device_ops=ops, profiler_post_ms=post)
 
-    sync(dev)
-    t0 = time.perf_counter()
+    outs, host = [], []
     if dev.type != "cuda":          # a rehearsal on the CPU: no device
-        out = fn()
-        return out, timing((time.perf_counter() - t0) * 1e3)
+        for fn, wall in zip(fns, walls):
+            t0 = time.perf_counter()
+            outs.append(fn())
+            host.append((time.perf_counter() - t0) * 1e3)
+        return outs, [timing(wall if wall is not None else ms)
+                      for ms, wall in zip(host, walls)]
+    sync(dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        sync(dev)
+        for i, fn in enumerate(fns):
+            if i:
+                torch.cuda._sleep(1)
+                sync(dev)
+            t0 = time.perf_counter()
+            outs.append(fn())
+            sync(dev)
+            host.append((time.perf_counter() - t0) * 1e3)
         t1 = time.perf_counter()
-    busy, by_name = 0.0, {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            ms = e.duration_ns() / 1e6
-            busy += ms
-            if top:
-                name = e.name()
-                total, calls = by_name.get(name, (0.0, 0))
-                by_name[name] = (total + ms, calls + 1)
+    events = sorted(((e.start_ns(), e.duration_ns() / 1e6, e.name())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA),
+                    key=lambda e: e[0])
+    calls = [[]]
+    for start, ms, name in events:
+        if MARKER_KERNEL in name:
+            calls.append([])
+        else:
+            calls[-1].append((ms, name))
+    if len(calls) != len(fns):
+        raise RuntimeError(f"profiled_runs: {len(calls) - 1} markers "
+                           f"recorded between {len(fns)} calls")
     post = (time.perf_counter() - t1) * 1e3
-    ops = None
-    if top:
-        ops = [dict(name=name[:90], ms=ms, calls=calls)
-               for name, (ms, calls) in sorted(
-                   by_name.items(), key=lambda kv: -kv[1][0])[:6]]
-    return out, timing((t1 - t0) * 1e3, busy or None, ops, post)
+    timings = []
+    for got, ms, wall in zip(calls, host, walls):
+        busy, by_name = 0.0, {}
+        for dur, name in got:
+            busy += dur
+            total, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (total + dur, n + 1)
+        ops = None
+        if top:
+            ops = [dict(name=name[:90], ms=t, calls=n)
+                   for name, (t, n) in sorted(
+                       by_name.items(), key=lambda kv: -kv[1][0])[:6]]
+        timings.append(timing(wall if wall is not None else ms,
+                              busy or None, ops, post))
+    return outs, timings
 
 
 def wall_ms(fn, dev) -> float:
@@ -3183,6 +3418,7 @@ def main() -> int:
     from photogrammetry_tpu_torch.sfm.frontend import (
         FrontendConfig, make_pairs,
     )
+    from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -3229,6 +3465,8 @@ def main() -> int:
         {n: counters[n] for n in ("fast_score", "brief_bits", "hamming")})
     launches_sfm, _, sfm_stats = timed("sfm", drive_sfm, dev, seq, k,
                                        centers, earlier)
+    launches_pre, pre_rows = timed("precompute", drive_precompute, dev, seq,
+                                   k, centers, earlier, sfm_stats)
     with tempfile.TemporaryDirectory() as cache_dir:
         captured = capture_frames(dev, seq)
         launches = timed("dewarp_sfm", drive_dewarp_sfm, dev, seq, captured,
@@ -3240,8 +3478,9 @@ def main() -> int:
         # the loop path: every kernel's counter and the batched Hamming's
         loop_counters = {**counters,
                          "hamming_pairs": hamming.hamming_distance_matrix_pairs}
-        errs["hamming"] = max(errs["hamming"], timed(
-            "loop_parity", check_loop_kernels, dev, loop_counters))
+        errs["hamming_pairs"] = timed("loop_parity", check_loop_kernels,
+                                      dev, loop_counters)
+        errs["hamming"] = max(errs["hamming"], errs["hamming_pairs"])
         launches_loop, loop = timed("loop_closure", drive_loop_closure, dev,
                                     seq, k, centers, loop_counters, cache_dir)
         timed("checkpoint", drive_checkpoint, dev, seq, k, centers, earlier,
@@ -3269,6 +3508,7 @@ def main() -> int:
                              earlier, sfm_stats),
             "submaps": timed("submaps", drive_submaps, dev, seq, k, rs_gt,
                              centers, earlier, cache_dir)}
+        timed("timing_precompute", time_precompute, dev, seq, k, earlier)
     # each kernel's row is taken at the shape the dewarp + SfM path gives it
     timings["schur"] = schur_rows["F%d_T%d" % SCHUR_SHAPES[0]]
     timings["remap"] = remap_rows["stack_f32"]
@@ -3303,8 +3543,12 @@ def main() -> int:
         raise AssertionError(f"kernels not launched by the CLIs: {missing}")
     # the batched entry of the Hamming kernel: its loop-path launches and
     # its rows at F = 23 and 64
+    pre_row = pre_rows["Q%d_K%d" % (SfmConfig().frontend_chunk,
+                                    SFM_KEYPOINTS)]
     batched = dict(entry="hamming_distance_matrix_pairs",
                    launches_loop=launches_loop["hamming_pairs"],
+                   launches_precompute=launches_pre["hamming_pairs"],
+                   precompute_shapes=pre_rows,
                    **{name: {key: row[key] for key in (
                        "pairs", "ms", "ms_from", "graph_ms", "call_ms",
                        "bound_ms", "bound_by", "plain_ms", "library_ms",
@@ -3332,6 +3576,7 @@ def main() -> int:
              launches_loop=launches_loop.get(n, 0),
              launches_frontend_clis=launches_clis.get(n, 0),
              launches_distributed=launches_dist.get(n, 0),
+             launches_precompute=launches_pre.get(n, 0),
              **{f"launches_{path}": got.get(n, 0)
                 for path, got in new_paths.items()},
              new_shape=(dict(row=new_shape[n], **shape_rows[new_shape[n]])
@@ -3342,7 +3587,22 @@ def main() -> int:
                  schur_shard["shape"]), **schur_shard)
                                 if n == "schur" else None),
              **({"batched": batched} if n == "hamming" else {}))
-        for n in counters]})
+        for n in counters] + [
+        # the batched entry on its own row: its launches are the precompute
+        # path's, its times the first chunk's shape (Q = 16, K = 512)
+        dict(name="hamming_pairs", route="cuda", source=hamming.SOURCE,
+             replaces=hamming.REPLACES,
+             launches=launches_pre["hamming_pairs"],
+             max_abs_err=errs["hamming_pairs"], ms=pre_row["graph_ms"],
+             ms_from="graph_ms", plain_ms=pre_row["plain_call_ms"],
+             plain_ms_from="call_ms", bound_ms=pre_row["bound_ms"],
+             bound_by=pre_row["bound_by"],
+             library_ms=pre_row["library_call_ms"],
+             library_ms_from="call_ms", call_ms=pre_row["call_ms"],
+             launches_loop=launches_loop["hamming_pairs"],
+             shape=dict(pairs=pre_row["pairs"],
+                        keypoints=pre_row["keypoints"],
+                        bits=pre_row["bits"]))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

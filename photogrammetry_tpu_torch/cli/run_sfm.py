@@ -4,7 +4,7 @@
     python -m photogrammetry_tpu_torch.cli.run_sfm [FRAMES_DIR] \\
         [--synthetic-frames 8] [--restarts 3] [--device cuda] \\
         [--distortion-coeffs K1 K2 K3 K4 K5] [--dewarp-cache DIR] \\
-        [--oriented-brief] [--pyramid-octaves N] \\
+        [--oriented-brief] [--pyramid-octaves N] [--precompute-matching] \\
         [--checkpoint PATH [--no-resume]] \\
         [--keyframe-disp PX | --submap-frames N [--submap-overlap N] ...] \\
         [--loop-closure [--loop-mode revisit] [--loop-min-gap N] ...] \\
@@ -29,9 +29,9 @@ octaves.  ``--mesh N`` shards the windowed and final BA's landmarks over a
 world of N ranks (``parallel/``): on ``cuda`` one rank a card over NCCL,
 with ``--device cpu`` N gloo processes; the CLI spawns them, or joins the
 world a launcher such as ``torchrun`` set up (``WORLD_SIZE``).  Every rank
-runs the whole pipeline (SPMD) and rank 0 writes the outputs.  The JAX
-CLI's ``--precompute-matching`` is not ported: it raises
-NotImplementedError.
+runs the whole pipeline (SPMD) and rank 0 writes the outputs.
+``--precompute-matching`` matches and gates every (t, t-1) and (t, t-2)
+frame pair before the loop, a chunk of pairs a batched Hamming launch.
 """
 from __future__ import annotations
 
@@ -43,7 +43,6 @@ from types import SimpleNamespace
 
 from photogrammetry_tpu_torch.cli.common import load_gray
 
-NOT_PORTED = ("--precompute-matching",)
 LOOP_SEED = 7   # the loop-edge measurement's draws (JAX: PRNGKey(7))
 LINK_SEED = 11  # the loop links' epipolar gate (JAX: PRNGKey(11))
 
@@ -187,6 +186,12 @@ def main(argv=None) -> int:
                          "(tracking across up to ~2^(octaves-1) of "
                          "apparent-scale change; keypoint and track "
                          "capacity scale with octaves)")
+    ap.add_argument("--precompute-matching", action="store_true",
+                    help="batched sequence-level matching+gating precompute "
+                         "(a chunk of frame pairs a batched Hamming launch "
+                         "where the default loop matches pair by pair; "
+                         "RANSAC seed streams differ from the default "
+                         "sequential draws)")
     ap.add_argument("--frame-stride", type=int, default=1,
                     help="temporal subsampling: keep every Nth frame")
     ap.add_argument("--distortion-coeffs", type=float, nargs=5, default=None,
@@ -259,14 +264,7 @@ def main(argv=None) -> int:
                     help=">0 shards the windowed and final BA's landmarks "
                          "over a world of N ranks: one a card over NCCL on "
                          "cuda, N gloo processes with --device cpu")
-    args, rest = ap.parse_known_args(argv)
-    for arg in rest:
-        if arg.split("=")[0] in NOT_PORTED:
-            raise NotImplementedError(
-                f"run_sfm {arg.split('=')[0]} is not ported yet; use "
-                f"the JAX package's cli/run_sfm.py")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = ap.parse_args(argv)
     if args.restarts > 1 and args.checkpoint:
         ap.error("--restarts and --checkpoint conflict: restart selection "
                  "re-runs from scratch and cannot resume a snapshot")
@@ -378,6 +376,7 @@ def _run(args, ap, device, mesh) -> int:
         reduction="nms", suppression_radius=4.0, hamming_threshold=80,
         oriented_brief=bool(args.oriented_brief)),
         pyramid_octaves=octaves,
+        precompute_matching=bool(args.precompute_matching),
         # headroom for the octave-merged keypoint sets
         track_capacity=1024 * octaves,
         collect_diagnostics=bool(args.diagnostics), mesh=mesh)

@@ -9,7 +9,7 @@ are noisy; accuracy is judged on the across-seed distribution.  Usage:
         [--restarts 1] [--device cuda] [--plain] \\
         [--distortion-coeffs K1 K2 K3 K4 K5] \\
         [--out-and-back] [--loop-mode revisit] \\
-        [--pyramid-octaves 2] [--keyframe-disp PX]
+        [--pyramid-octaves 2] [--keyframe-disp PX] [--precompute-matching]
 
 With ``--distortion-coeffs`` the rendered frames are first barrel-distorted
 with the synthetic map (what a camera with that lens would capture) and
@@ -22,7 +22,9 @@ runs ``close_loops`` in that mode after each run (``run_sfm
 reports the ATE after it beside the ATE before.  ``--pyramid-octaves``
 runs the pyramid frontend (``run_sfm``'s track capacity 1024 x octaves);
 ``--keyframe-disp`` runs ``run_keyframed_sfm`` (the full trajectory's ATE,
-and the keyframe map's as ``ate_keyframes``).
+and the keyframe map's as ``ate_keyframes``).  ``--precompute-matching``
+sets ``SfmConfig.precompute_matching`` (the pairs matched in chunks up
+front, each pair's gate on its own draws).
 
 Prints one JSON line per seed (ATE, landmarks, support, median
 reprojection error) and a summary line: mean / p90 / max ATE and the share
@@ -60,6 +62,9 @@ def main(argv=None) -> int:
                     help="run the pyramid frontend on this many octaves")
     ap.add_argument("--keyframe-disp", type=float, default=0.0,
                     help=">0 runs the keyframed SfM at this gate (px)")
+    ap.add_argument("--precompute-matching", action="store_true",
+                    help="match the frame pairs up front in batched "
+                         "chunks (SfmConfig.precompute_matching)")
     ap.add_argument("--loop-mode", default=None,
                     choices=("rotation", "essential", "revisit",
                              "revisit_sim3"),
@@ -102,7 +107,8 @@ def main(argv=None) -> int:
                                    args.device, plain=args.plain)
     octaves = max(1, args.pyramid_octaves)
     cfg = SfmConfig(collect_diagnostics=False, pyramid_octaves=octaves,
-                    track_capacity=1024 * octaves)
+                    track_capacity=1024 * octaves,
+                    precompute_matching=args.precompute_matching)
 
     feats = None
     if args.loop_mode is not None:
@@ -179,6 +185,7 @@ def main(argv=None) -> int:
         "device": args.device, "plain": args.plain,
         "distortion_coeffs": args.distortion_coeffs,
         "pyramid_octaves": octaves, "keyframe_disp": args.keyframe_disp,
+        "precompute_matching": args.precompute_matching,
         "mean": float(ates.mean()),
         "p90": float(np.percentile(ates, 90)), "max": float(ates.max()),
         "within_bounds": float(np.mean([r["ate"] < 0.2

@@ -1,5 +1,5 @@
-"""ASCII PLY point-cloud export (the port's copy of
-photogrammetry_tpu/io/ply.py ``write_ply``; numpy only)."""
+"""ASCII PLY point-cloud export and its minimal reader (the port's copy
+of photogrammetry_tpu/io/ply.py; numpy only)."""
 from __future__ import annotations
 
 import numpy as np
@@ -28,3 +28,18 @@ def write_ply(path: str, points, colors=None) -> None:
         lines.append(row)
     with open(path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
+
+
+def read_ply(path: str) -> np.ndarray:
+    """Minimal ASCII PLY reader (xyz only), for round-trip tests."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    n = 0
+    for i, line in enumerate(lines):
+        if line.startswith("element vertex"):
+            n = int(line.split()[-1])
+        if line == "end_header":
+            body = lines[i + 1:i + 1 + n]
+            break
+    return np.array([[float(x) for x in row.split()[:3]] for row in body],
+                    np.float32)

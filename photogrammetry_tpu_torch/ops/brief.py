@@ -145,3 +145,11 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
     w = bits.to(torch.int32).reshape(n, p // 32, 32) << shifts
     return w.sum(dim=-1, dtype=torch.int32).view(torch.uint32)
+
+
+def brief_descriptors(image: torch.Tensor, coords: torch.Tensor,
+                      pairs: torch.Tensor):
+    """Convenience: (bits (N, P) uint8, packed (N, P//32) uint32) of one
+    (H, W) frame's (N, 2) keypoints, through the plain ``brief_bits``."""
+    bits = brief_bits(image, coords, pairs)
+    return bits, pack_bits(bits)

@@ -5,8 +5,9 @@
 of at most 2^24 terms, with TF32 off).  The frontend calls the tensor-core
 kernel in ``kernels/hamming.py`` instead, whose wrapper runs this function
 only for tensors on the CPU.  ``hamming_distance_matrix_pairs`` is the same
-over a batch of frame pairs (loop closure's pair grid), and
-``mutual_nearest_counts`` the batched match count that reads it.
+over a batch of frame pairs (loop closure's pair grid, the SfM sequence's
+precomputed matches), ``mutual_nearest_matches_batch`` the matching over
+such a batch and ``mutual_nearest_counts`` its match counts.
 
 Match policies over a distance matrix: ``mutual_nearest_matches`` (the
 frontend's), ``sorted_candidate_matches`` (per-row candidates by
@@ -59,18 +60,31 @@ def hamming_distance_matrix_pairs(bits: torch.Tensor, masks: torch.Tensor,
     return torch.where(ok, d, INT_INF)
 
 
-def mutual_nearest_counts(dist: torch.Tensor,
-                          max_distance: int) -> torch.Tensor:
-    """(Q, N1, N2) distances → (Q,) int32 counts of the mutual-nearest
-    matches within ``max_distance``: ``mutual_nearest_matches``' valid
-    rows, without a ratio test, for every matrix of the batch (ties go to
-    the first index)."""
+def mutual_nearest_matches_batch(dist: torch.Tensor, max_distance: int,
+                                 max_ratio: float | None = None):
+    """``mutual_nearest_matches`` for every matrix of a (Q, N1, N2) batch
+    (the same ties, threshold and ratio test): (idx2 (Q, N1) int32, d
+    (Q, N1) int32, valid (Q, N1) bool)."""
     best2 = torch.argmin(dist, dim=2)                     # (Q, N1)
     best1 = torch.argmin(dist, dim=1)                     # (Q, N2)
     d = torch.gather(dist, 2, best2[:, :, None])[:, :, 0]
     rows = torch.arange(dist.shape[1], device=dist.device)
     mutual = torch.gather(best1, 1, best2) == rows
     valid = mutual & (d <= max_distance) & (d < INT_INF)
+    if max_ratio is not None:
+        masked = dist.scatter(2, best2[:, :, None], INT_INF)
+        second = masked.min(dim=2).values
+        ok = d.to(torch.float32) <= max_ratio * torch.clamp(
+            second, max=INT_INF - 1).to(torch.float32)
+        valid = valid & ok
+    return torch.where(valid, best2, -1).to(torch.int32), d, valid
+
+
+def mutual_nearest_counts(dist: torch.Tensor,
+                          max_distance: int) -> torch.Tensor:
+    """(Q, N1, N2) distances → (Q,) int32 counts of the mutual-nearest
+    matches within ``max_distance``, without a ratio test."""
+    valid = mutual_nearest_matches_batch(dist, max_distance)[2]
     return valid.sum(dim=1, dtype=torch.int32)
 
 
@@ -83,20 +97,10 @@ def mutual_nearest_matches(dist: torch.Tensor, max_distance: int,
 
     Returns (idx2 (N1,) int32 — match in set 2 for each row, or -1;
              d (N1,) int32 — its distance;
-             valid (N1,) bool).
-    """
-    best2 = torch.argmin(dist, dim=1)  # (N1,)
-    best1 = torch.argmin(dist, dim=0)  # (N2,)
-    d = torch.gather(dist, 1, best2[:, None])[:, 0]
-    mutual = best1[best2] == torch.arange(dist.shape[0], device=dist.device)
-    valid = mutual & (d <= max_distance) & (d < INT_INF)
-    if max_ratio is not None:
-        masked = dist.scatter(1, best2[:, None], INT_INF)
-        second = masked.min(dim=1).values
-        ok = d.to(torch.float32) <= max_ratio * torch.clamp(
-            second, max=INT_INF - 1).to(torch.float32)
-        valid = valid & ok
-    return torch.where(valid, best2, -1).to(torch.int32), d, valid
+             valid (N1,) bool)."""
+    idx2, d, valid = mutual_nearest_matches_batch(dist[None], max_distance,
+                                                  max_ratio)
+    return idx2[0], d[0], valid[0]
 
 
 def sorted_candidate_matches(dist: torch.Tensor):

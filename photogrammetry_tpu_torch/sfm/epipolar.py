@@ -39,6 +39,16 @@ def normalization_transform(xy: torch.Tensor,
     ], -2)
 
 
+def _finite_or_eye(a: torch.Tensor):
+    """(ok (…,), a with every matrix holding a non-finite entry replaced by
+    the identity): the torch.linalg decompositions raise for the whole
+    batch on such a matrix, where the jnp.linalg ones give that item NaN.
+    Decided per item on the device, without a host read."""
+    ok = torch.isfinite(a).all(-1).all(-1)
+    eye = torch.eye(a.shape[-2], a.shape[-1], dtype=a.dtype, device=a.device)
+    return ok, torch.where(ok[..., None, None], a, eye)
+
+
 def smallest_eigvec(a: torch.Tensor) -> torch.Tensor:
     """Eigenvector of the smallest eigenvalue of symmetric (…, D, D).
 
@@ -46,10 +56,37 @@ def smallest_eigvec(a: torch.Tensor) -> torch.Tensor:
     does, where ``torch.linalg.eigh`` raises for the whole batch (a NaN
     landmark weighted by 0 still puts NaN into a PnP refit's Gram matrix,
     whose NaN pose the caller then rejects)."""
-    ok = torch.isfinite(a).all(-1).all(-1)
-    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
-    v = torch.linalg.eigh(torch.where(ok[..., None, None], a, eye))
+    ok, a = _finite_or_eye(a)
+    v = torch.linalg.eigh(a)
     return torch.where(ok[..., None], v.eigenvectors[..., :, 0], torch.nan)
+
+
+def svd_or_nan(a: torch.Tensor):
+    """``torch.linalg.svd`` of (…, M, N) whose items with a non-finite
+    entry give NaN U, S and Vh, as ``jnp.linalg.svd`` does; the other
+    items keep their bits."""
+    ok, a = _finite_or_eye(a)
+    u, s, vt = torch.linalg.svd(a)
+    return (torch.where(ok[..., None, None], u, torch.nan),
+            torch.where(ok[..., None], s, torch.nan),
+            torch.where(ok[..., None, None], vt, torch.nan))
+
+
+def solve_or_nan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.solve(a, b)`` for (…, D, D) ``a`` and (…, D, K) ``b``
+    that gives NaN where ``a`` has a non-finite entry or is singular (the
+    jnp.linalg LU gives NaN or inf there; torch raises for the batch)."""
+    ok, a = _finite_or_eye(a)
+    x, info = torch.linalg.solve_ex(a, b)
+    return torch.where((ok & (info == 0))[..., None, None], x, torch.nan)
+
+
+def inv_or_nan(a: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.inv`` of (…, D, D) with NaN for an item that is
+    singular or has a non-finite entry, as for ``solve_or_nan``."""
+    ok, a = _finite_or_eye(a)
+    x, info = torch.linalg.inv_ex(a)
+    return torch.where((ok & (info == 0))[..., None, None], x, torch.nan)
 
 
 def eight_point_fundamental(xy1: torch.Tensor, xy2: torch.Tensor,
@@ -77,7 +114,7 @@ def eight_point_fundamental(xy1: torch.Tensor, xy2: torch.Tensor,
     f = smallest_eigvec(gram).reshape(*gram.shape[:-2], 3, 3)
     f = t2.transpose(-1, -2) @ f @ t1
     # project to rank 2 (zero the smallest singular value)
-    u, s, vt = torch.linalg.svd(f)
+    u, s, vt = svd_or_nan(f)
     s = torch.cat([s[..., :2], torch.zeros_like(s[..., 2:])], dim=-1)
     f = (u * s[..., None, :]) @ vt
     norm = torch.linalg.matrix_norm(f)[..., None, None]
@@ -137,6 +174,20 @@ def ransac_fundamental(sample_idx: torch.Tensor, xy1: torch.Tensor,
     locally optimized by ``lo_iterations`` refit-on-inliers rounds, each
     kept only if the consensus does not shrink."""
     fs = eight_point_fundamental(xy1[sample_idx], xy2[sample_idx])  # (H,3,3)
+    return ransac_on_hypotheses(fs, sample_idx, xy1, xy2, mask, threshold,
+                                residual, signed_residual, refit,
+                                lo_iterations)
+
+
+def ransac_on_hypotheses(fs: torch.Tensor, sample_idx: torch.Tensor,
+                         xy1: torch.Tensor, xy2: torch.Tensor,
+                         mask: torch.Tensor, threshold: float,
+                         residual: str = "sampson",
+                         signed_residual: bool = False, refit: bool = True,
+                         lo_iterations: int = 3) -> RansacResult:
+    """``ransac_fundamental`` after its hypotheses: score the (H, 3, 3)
+    ``fs`` drawn from ``sample_idx`` (H, S), take the first of the highest
+    inlier count and refine it."""
     r = epipolar_residuals(fs, xy1, xy2, kind=residual)              # (H, N)
     counts = (_inlier_test(r, threshold, signed_residual) & mask).sum(-1)
     best = torch.argmax(counts)
@@ -165,7 +216,7 @@ def essential_from_fundamental(f: torch.Tensor, k1: torch.Tensor,
 
 def decompose_essential(e: torch.Tensor):
     """E → 4 candidate poses (R (4,3,3), t (4,3)), det(R) = +1."""
-    u, _, vt = torch.linalg.svd(e)
+    u, _, vt = svd_or_nan(e)
     w = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
                      dtype=e.dtype, device=e.device)
     r1 = u @ w @ vt

@@ -6,6 +6,8 @@ of photogrammetry_tpu/sfm/frontend.py).
   precompute_frontend: (F, H, W) sequence → the same with a leading F axis
                        (``octaves`` > 1: the batched pyramid)
   match_pair:          two described frames → (xy1, xy2, mask)
+  precompute_matching: every (t, t-1) and (t, t-2) pair of a sequence,
+                       matched a chunk of pairs a launch and gated
 
 The three hot steps go through the hand-written kernels of ``kernels/``
 (FAST score, BRIEF bits, Hamming distances); on CPU tensors those wrappers
@@ -19,6 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from photogrammetry_tpu_torch.core.camera import keypoints_to_xy
@@ -28,12 +31,17 @@ from photogrammetry_tpu_torch.ops.brief import (
 )
 from photogrammetry_tpu_torch.ops.cluster import grid_cluster_keypoints
 from photogrammetry_tpu_torch.ops.fast import extract_keypoints
-from photogrammetry_tpu_torch.ops.match import mutual_nearest_matches
+from photogrammetry_tpu_torch.ops.match import (
+    mutual_nearest_matches, mutual_nearest_matches_batch,
+)
 from photogrammetry_tpu_torch.ops.nms import (
     anms_keypoints, compact_points, nms_keypoints, nms_keypoints_parallel,
     nms_keypoints_static,
 )
 from photogrammetry_tpu_torch.ops.refine import refine_subpixel_dense
+from photogrammetry_tpu_torch.sfm.epipolar import (
+    draw_samples, ransac_fundamental,
+)
 from photogrammetry_tpu_torch.utils.padding import PaddedPoints
 
 NMS_IMPLS = {"static": nms_keypoints_static,
@@ -161,6 +169,11 @@ def detect_and_describe(gray: torch.Tensor, pairs: torch.Tensor,
                           xy=refine_xy(gray, pts, config))
 
 
+# JAX's names: its split form is a dispatch workaround with the fused
+# form's results, and the port's describe stage is eager either way
+detect_and_describe_split = detect_and_describe
+
+
 def detect_and_describe_batch_split(grays: torch.Tensor, pairs: torch.Tensor,
                                     config: FrontendConfig,
                                     plain: bool = False) -> DescribedFrame:
@@ -178,6 +191,9 @@ def detect_and_describe_batch_split(grays: torch.Tensor, pairs: torch.Tensor,
     xy = torch.stack([refine_xy(gray, PaddedPoints(*(x[i] for x in pts)),
                                 config) for i, gray in enumerate(grays)])
     return DescribedFrame(points=pts, bits=bits, xy=xy)
+
+
+detect_and_describe_batch = detect_and_describe_batch_split
 
 
 def _cat(batches) -> DescribedFrame:
@@ -302,3 +318,110 @@ def match_pair(f1: DescribedFrame, f2: DescribedFrame,
     xy2 = f2.xy[torch.clamp(idx2, min=0).to(torch.int64)]
     return MatchedPair(xy1=xy1, xy2=xy2, idx2=idx2, dist=dist, mask=valid,
                        num=valid.sum().to(torch.int32))
+
+
+class PrecompMatches(NamedTuple):
+    """Sequence-level matching + epipolar gates, leading frame axis t.
+
+    Row t holds the (t, t-1) consecutive match (valid for t >= 1) and the
+    (t, t-2) skip match (valid for t >= 2); rows outside those ranges are
+    masked all-False with count 0 (their idx row is the first pair's, as
+    in the JAX package).  idx arrays index the OLDER frame's keypoints.
+    """
+    idx1: torch.Tensor    # (F, K) int32 match into frame t-1 (-1 none)
+    good1: torch.Tensor   # (F, K) bool  mask & epipolar inliers
+    num1: torch.Tensor    # (F,) int32 raw mutual matches
+    idx2: torch.Tensor    # (F, K) int32 match into frame t-2
+    good2: torch.Tensor   # (F, K) bool
+    num2: torch.Tensor    # (F,) int32
+
+
+def sequence_pairs(num_frames: int):
+    """The (t, dt) pairs ``precompute_matching`` matches, in its order:
+    (t, 1) for t in 1..F-1, then (t, 2) for t in 2..F-1."""
+    return ([(t, 1) for t in range(1, num_frames)]
+            + [(t, 2) for t in range(2, num_frames)])
+
+
+def _pair_generator(base_seed: int, salt: int, device) -> torch.Generator:
+    """The generator of one pair's gate draws, seeded by (base seed, salt
+    2t + dt - 1) through numpy's SeedSequence: each pair's draws depend on
+    neither the order nor the chunking of the pairs."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence([base_seed, salt])
+                      .generate_state(1, np.uint64)[0] >> np.uint64(1)))
+    return g
+
+
+def precompute_matching(feats: DescribedFrame, config: FrontendConfig,
+                        generator: torch.Generator | None, num_frames: int,
+                        ransac_threshold: float, ransac_samples: int,
+                        chunk: int = 16, plain: bool = False,
+                        sample_idx: torch.Tensor | None = None
+                        ) -> PrecompMatches:
+    """Whole-sequence consecutive + skip matching: the (Q, K, K) distances
+    of ``chunk`` pairs at a time from one launch of the batched Hamming
+    kernel (``plain=True``: its plain version), mutual-nearest matching
+    over the block (``match_pair``'s threshold, ties and ratio test), then
+    each pair's RANSAC-F gate over ``ransac_samples`` hypotheses.
+
+    Draws: one base seed from ``generator`` (one host read), then each
+    pair's (H, 8) samples from ``_pair_generator(base, 2t + dt - 1)``, so
+    chunking cannot change results.  ``sample_idx`` (n_pairs, H, 8), in
+    ``sequence_pairs`` order, replaces the draws (``generator`` unused).
+    """
+    if num_frames < 2:
+        raise ValueError("precompute_matching: needs at least 2 frames")
+    pairs = sequence_pairs(num_frames)
+    n = len(pairs)
+    bits, masks, xy = feats.bits, feats.points.mask, feats.xy
+    dev = bits.device
+    if sample_idx is None:
+        base = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=dev))
+    dist_fn = (hamming.hamming_distance_matrix_pairs_plain if plain
+               else hamming.hamming_distance_matrix_pairs)
+    ratio = config.ratio_test if config.ratio_test > 0 else None
+    ii_all = torch.tensor([t for t, _ in pairs], dtype=torch.int32,
+                          device=dev)
+    jj_all = torch.tensor([t - dt for t, dt in pairs], dtype=torch.int32,
+                          device=dev)
+    idx_out, good_out, num_out = [], [], []
+    chunk = max(1, chunk)
+    for s in range(0, n, chunk):
+        ii, jj = ii_all[s:s + chunk], jj_all[s:s + chunk]
+        d = dist_fn(bits, masks, ii, jj)                      # (Q, K, K)
+        idx2, _, valid = mutual_nearest_matches_batch(
+            d, config.hamming_threshold, max_ratio=ratio)
+        xy1 = xy[ii.long()]
+        xy2 = torch.gather(xy[jj.long()], 1, torch.clamp(
+            idx2, min=0).long()[:, :, None].expand(-1, -1, 2))
+        for q in range(ii.shape[0]):
+            t, dt = pairs[s + q]
+            if sample_idx is None:
+                idx = draw_samples(_pair_generator(base, 2 * t + dt - 1, dev),
+                                   valid[q], ransac_samples, 8)
+            else:
+                idx = sample_idx[s + q].to(dev)
+            gate = ransac_fundamental(idx, xy1[q], xy2[q], valid[q],
+                                      ransac_threshold)
+            good_out.append(valid[q] & gate.inliers)
+        idx_out.append(idx2)
+        num_out.append(valid.sum(dim=1, dtype=torch.int32))
+    all_idx = torch.cat(idx_out)
+    all_good = torch.stack(good_out)
+    all_num = torch.cat(num_out)
+    index = {p: i for i, p in enumerate(pairs)}
+
+    def rows(dt):
+        sel = torch.tensor([index.get((t, dt), 0)
+                            for t in range(num_frames)], device=dev)
+        has = torch.tensor([(t, dt) in index for t in range(num_frames)],
+                           device=dev)
+        return (all_idx[sel], all_good[sel] & has[:, None],
+                torch.where(has, all_num[sel], 0).to(torch.int32))
+
+    i1, g1, n1 = rows(1)
+    i2, g2, n2 = rows(2)
+    return PrecompMatches(idx1=i1, good1=g1, num1=n1,
+                          idx2=i2, good2=g2, num2=n2)

@@ -12,7 +12,8 @@ import torch
 
 from photogrammetry_tpu_torch.core.camera import to_homogeneous
 from photogrammetry_tpu_torch.sfm.epipolar import (
-    normalization_transform, smallest_eigvec,
+    inv_or_nan, normalization_transform, smallest_eigvec, solve_or_nan,
+    svd_or_nan,
 )
 
 
@@ -38,7 +39,7 @@ def dlt_homography(xy1: torch.Tensor, xy2: torch.Tensor,
     a = torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)
     gram = a.transpose(-1, -2) @ a
     h = smallest_eigvec(gram).reshape(*gram.shape[:-2], 3, 3)
-    h = torch.linalg.solve(t2, h) @ t1  # denormalize: T2^-1 H T1
+    h = solve_or_nan(t2, h) @ t1  # denormalize: T2^-1 H T1
     norm = torch.linalg.matrix_norm(h)[..., None, None]
     return h / torch.clamp(norm, min=1e-12)
 
@@ -48,7 +49,7 @@ def homography_residuals(h: torch.Tensor, xy1: torch.Tensor,
     """Symmetric transfer error (pixels) of (…, 3, 3) H over (N, 2) points
     → (…, N): (|H x1 - x2| + |H^-1 x2 - x1|) / 2."""
     eye = torch.eye(3, dtype=h.dtype, device=h.device)
-    hinv = torch.linalg.inv(h + 1e-30 * eye)
+    hinv = inv_or_nan(h + 1e-30 * eye)
 
     def transfer(m, a):
         p = to_homogeneous(a) @ m.transpose(-1, -2)
@@ -93,8 +94,8 @@ def decompose_homography(h: torch.Tensor, k1: torch.Tensor,
     """Calibrated H → 4 candidate poses (R (4,3,3), t (4,3), n (4,3)) by
     Faugeras-Lustman's SVD construction; t is unit-normalized and n points
     toward camera 1."""
-    hn = torch.linalg.solve(k2, h) @ k1
-    u, d, vt = torch.linalg.svd(hn)
+    hn = solve_or_nan(k2, h) @ k1
+    u, d, vt = svd_or_nan(hn)
     d2 = torch.clamp(d[1], min=1e-12)
     d1, d3 = d[0] / d2, d[2] / d2
     s = torch.linalg.det(u) * torch.linalg.det(vt)

@@ -23,6 +23,12 @@ All randomness comes from one ``torch.Generator`` on the device seeded
 with ``seed``, drawn in JAX's order: the gate, the skip gate, the
 bootstrap attempts, then PnP.
 
+With ``SfmConfig.precompute_matching`` every (t, t-1) and (t, t-2) match
+and its epipolar gate is computed once after the frontend
+(``frontend.precompute_matching``: a chunk of pairs a launch of the
+batched Hamming kernel, each pair's gate drawn from its own generator),
+and frame t chains its tracks from row t of the result.
+
 With ``checkpoint_path`` the state (poses, landmarks, track table)
 snapshots every ``checkpoint_every`` frames and at the last frame
 (``store/checkpoint.py``, the JAX package's file format), deferred frames
@@ -34,7 +40,7 @@ the mesh's "tracks" ranks; every rank runs the rest of the run identically
 with the same seeds (SPMD), so every rank holds the same result.
 
 Left out of the port (the JAX package's workarounds for TPU dispatch
-cost): ``precompute_matching``, ``fused_steady_steps`` /
+cost): ``fused_steady_steps`` /
 ``run_incremental_sfm_fused``, ``read_free`` and ``export=False`` /
 ``DeviceSfmResult``.
 """
@@ -51,11 +57,11 @@ from photogrammetry_tpu_torch.sfm.ba import (
     BAProblem, BAState, bundle_adjust, project,
 )
 from photogrammetry_tpu_torch.sfm.epipolar import (
-    draw_samples, ransac_fundamental,
+    draw_samples, ransac_fundamental, smallest_eigvec,
 )
 from photogrammetry_tpu_torch.sfm.frontend import (
-    FrontendConfig, frame_features, make_pairs, match_pair,
-    precompute_frontend,
+    FrontendConfig, PrecompMatches, frame_features, make_pairs, match_pair,
+    precompute_frontend, precompute_matching,
 )
 from photogrammetry_tpu_torch.sfm.pnp import (
     draw_pnp_samples, pnp_reprojection_errors, ransac_pnp,
@@ -112,6 +118,9 @@ class SfmConfig:
     # keypoint capacity becomes octaves x frontend.max_keypoints, so scale
     # track_capacity with it
     pyramid_octaves: int = 1
+    # match and gate every (t, t-1) / (t, t-2) pair up front, a chunk of
+    # frontend_chunk pairs a batched Hamming launch
+    precompute_matching: bool = False
     mesh: object = None
 
 
@@ -145,7 +154,7 @@ def _triangulate_tracks(table: TrackTable, rs, ts, k, first, last,
                      xy0[:, 1, None] * p0[:, 2] - p0[:, 1],
                      xy1[:, 0, None] * p1[:, 2] - p1[:, 0],
                      xy1[:, 1, None] * p1[:, 2] - p1[:, 1]], dim=1)
-    xh = torch.linalg.eigh(d.transpose(-1, -2) @ d).eigenvectors[..., 0]
+    xh = smallest_eigvec(d.transpose(-1, -2) @ d)
     denom = torch.where(xh[:, 3].abs() < 1e-12, 1e-12, xh[:, 3])
     x = xh[:, :3] / denom[:, None]
     z0 = (rs[f0] @ x[..., None])[:, 2, 0] + ts[f0, 2]
@@ -358,6 +367,20 @@ def _gate(generator, m, config: SfmConfig):
                                        config.ransac_threshold).inliers
 
 
+def _chain_extend_device(table: TrackTable, kp_track_prev2, t: int,
+                         feats, pm: PrecompMatches, capacity: int):
+    """Frame t's track chaining from row t of the precomputed matches and
+    gates: consecutive and skip claims merged, the table extended.
+    Returns (table, the kp_track snapshot before it, chained count as a
+    device scalar)."""
+    tid = merge_skip_matches(table.kp_track, kp_track_prev2, pm.idx1[t],
+                             pm.good1[t], pm.idx2[t], pm.good2[t], capacity)
+    kp_track_prev = table.kp_track
+    table = extend_tracks_with_tid(table, t, feats.xy[t],
+                                   feats.points.mask[t], tid)
+    return table, kp_track_prev, (tid >= 0).sum().to(torch.int32)
+
+
 def _fit_frames(rs, ts, table: TrackTable, num_frames: int):
     """A resumed state over ``num_frames`` frames: a checkpoint of a shorter
     run gets identity poses and empty observation rows for the frames it
@@ -440,6 +463,12 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
     feats = precompute_frontend(frames_t, pairs, fc,
                                 chunk=config.frontend_chunk, octaves=octaves,
                                 plain=plain)
+    pm = None
+    if config.precompute_matching and num_frames >= 2:
+        pm = precompute_matching(feats, fc, gen, num_frames,
+                                 config.ransac_threshold,
+                                 config.ransac_samples // 2,
+                                 chunk=config.frontend_chunk, plain=plain)
     if checkpoint_path and resume and os.path.isfile(checkpoint_path):
         rs, ts, table, done, _ = load_checkpoint(checkpoint_path, device=dev)
         rs, ts, table = _fit_frames(rs, ts, table, num_frames)
@@ -486,27 +515,38 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
 
     for t in range(start_frame, num_frames):
         cur = frame_features(feats, t)
-        m = match_pair(cur, prev, fc, plain=plain)  # rows = current kps
-        # only RANSAC-inlier matches may chain tracks
-        good = _gate(gen, m, config)
-        kp_track_prev = table.kp_track
-        if prev2 is not None:
-            # skip-frame matching: unclaimed keypoints also match frame t-2
-            m2 = match_pair(cur, prev2, fc, plain=plain)
-            good2 = _gate(gen, m2, config)
-            tid = merge_skip_matches(kp_track_prev, kp_track_prev2,
-                                     m.idx2, good, m2.idx2, good2,
-                                     config.track_capacity)
-        else:
-            tid = torch.where(
-                good, kp_track_prev[torch.clamp(m.idx2, min=0).long()],
-                -1).to(torch.int32)
-        table = extend_tracks_with_tid(table, t, cur.xy, cur.points.mask,
-                                       tid)
         info = {"frame": t, "pose_init": "prior"}
-        if config.collect_diagnostics:
-            info.update(matches=int(m.num), gated_matches=int(good.sum()),
-                        chained=int((tid >= 0).sum()))
+        if pm is not None:
+            kp2 = (kp_track_prev2 if kp_track_prev2 is not None
+                   else torch.full_like(table.kp_track, -1))
+            table, kp_track_prev, n_chained = _chain_extend_device(
+                table, kp2, t, feats, pm, config.track_capacity)
+            if config.collect_diagnostics:
+                info.update(matches=int(pm.num1[t]),
+                            gated_matches=int(pm.good1[t].sum()),
+                            chained=int(n_chained))
+        else:
+            m = match_pair(cur, prev, fc, plain=plain)  # rows = current kps
+            # only RANSAC-inlier matches may chain tracks
+            good = _gate(gen, m, config)
+            kp_track_prev = table.kp_track
+            if prev2 is not None:
+                # skip-frame matching: unclaimed keypoints also match t-2
+                m2 = match_pair(cur, prev2, fc, plain=plain)
+                good2 = _gate(gen, m2, config)
+                tid = merge_skip_matches(kp_track_prev, kp_track_prev2,
+                                         m.idx2, good, m2.idx2, good2,
+                                         config.track_capacity)
+            else:
+                tid = torch.where(
+                    good, kp_track_prev[torch.clamp(m.idx2, min=0).long()],
+                    -1).to(torch.int32)
+            table = extend_tracks_with_tid(table, t, cur.xy,
+                                           cur.points.mask, tid)
+            if config.collect_diagnostics:
+                info.update(matches=int(m.num),
+                            gated_matches=int(good.sum()),
+                            chained=int((tid >= 0).sum()))
 
         if not map_ready:
             force = (t == num_frames - 1) or (t >= config.bootstrap_max_defer)

@@ -32,6 +32,7 @@ import torch
 from photogrammetry_tpu_torch import resolve_device
 from photogrammetry_tpu_torch.kernels import hamming
 from photogrammetry_tpu_torch.ops.match import mutual_nearest_counts
+from photogrammetry_tpu_torch.sfm.epipolar import svd_or_nan
 from photogrammetry_tpu_torch.sfm.frontend import match_pair
 from photogrammetry_tpu_torch.sfm.pose_graph import (
     PoseGraph, PoseGraphSim3, optimize_pose_graph, optimize_pose_graph_sim3,
@@ -165,7 +166,7 @@ def rotation_from_bearings(xy1: torch.Tensor, xy2: torch.Tensor,
     r = torch.eye(3, device=b1.device)
     for _ in range(3):
         m = (b2 * w[:, None]).T @ b1
-        u, _, vt = torch.linalg.svd(m)
+        u, _, vt = svd_or_nan(m)
         d = torch.sign(torch.linalg.det(u @ vt))
         r = u @ torch.diag(torch.stack([torch.ones_like(d),
                                         torch.ones_like(d), d])) @ vt

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from photogrammetry_tpu_torch.sfm.epipolar import svd_or_nan
+
 
 def align_umeyama(est: torch.Tensor, gt: torch.Tensor,
                   with_scale: bool = True):
@@ -16,7 +18,7 @@ def align_umeyama(est: torch.Tensor, gt: torch.Tensor,
     ec = est - mu_e
     gc = gt - mu_g
     cov = gc.T @ ec / est.shape[0]
-    u, d, vt = torch.linalg.svd(cov)
+    u, d, vt = svd_or_nan(cov)
     ones = torch.ones(3, dtype=est.dtype, device=est.device)
     flip = torch.tensor([1.0, 1.0, -1.0], dtype=est.dtype, device=est.device)
     s_fix = torch.where(torch.linalg.det(u) * torch.linalg.det(vt) < 0,

@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from photogrammetry_tpu_torch.core.camera import normalize_pixels
-from photogrammetry_tpu_torch.sfm.epipolar import smallest_eigvec
+from photogrammetry_tpu_torch.sfm.epipolar import smallest_eigvec, svd_or_nan
 
 
 def dlt_pnp(points_w: torch.Tensor, xn: torch.Tensor,
@@ -59,7 +59,7 @@ def dlt_pnp(points_w: torch.Tensor, xn: torch.Tensor,
     p = p @ torch.cat([top, bottom], dim=-2)
 
     p = p * torch.sign(torch.linalg.det(p[..., :3]))[..., None, None]
-    uu, ss, vt = torch.linalg.svd(p[..., :3])
+    uu, ss, vt = svd_or_nan(p[..., :3])
     r = uu @ vt
     r = torch.where((torch.linalg.det(r) < 0)[..., None, None], -r, r)
     s_mean = torch.clamp(ss.mean(-1), min=1e-12)

@@ -8,7 +8,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from photogrammetry_tpu_torch import resolve_device
 
 
 def round_up(x: int, m: int) -> int:
@@ -49,3 +52,24 @@ def front_indices(mask: torch.Tensor, capacity: int) -> torch.Tensor:
     ntrue = mask.sum()
     pos = torch.arange(capacity, device=mask.device)
     return torch.where(pos < ntrue, order, torch.zeros_like(order))
+
+
+def pad_to(coords, score, capacity: int, device="cuda") -> PaddedPoints:
+    """A PaddedPoints on ``device`` from host arrays: (N, 2) (row, col)
+    coords and (N,) scores padded to ``capacity``."""
+    coords = np.asarray(coords, dtype=np.int32).reshape(-1, 2)
+    score = np.asarray(score, dtype=np.float32).reshape(-1)
+    n = coords.shape[0]
+    if n > capacity:
+        raise ValueError(f"{n} points exceed capacity {capacity}")
+    out_c = np.zeros((capacity, 2), np.int32)
+    out_s = np.zeros((capacity,), np.float32)
+    out_m = np.zeros((capacity,), bool)
+    out_c[:n] = coords
+    out_s[:n] = score
+    out_m[:n] = True
+    dev = resolve_device(device)
+    return PaddedPoints(torch.from_numpy(out_c).to(dev),
+                        torch.from_numpy(out_s).to(dev),
+                        torch.from_numpy(out_m).to(dev),
+                        torch.tensor(n, dtype=torch.int32, device=dev))

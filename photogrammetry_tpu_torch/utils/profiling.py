@@ -1,5 +1,5 @@
-"""Stage timing + append-only run-stats log (port of
-photogrammetry_tpu/utils/profiling.py: ``StageTimer``, ``append_stats``)."""
+"""Stage timing, append-only run-stats log and a profiler trace scope
+(port of photogrammetry_tpu/utils/profiling.py)."""
 from __future__ import annotations
 
 import contextlib
@@ -64,3 +64,23 @@ def append_stats(path: str, record: dict) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as fh:
         json.dump(entries, fh, indent=1)
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str | None):
+    """``torch.profiler`` trace scope (the card's activity too where there
+    is one): on exit the trace is written as Chrome-trace JSON under
+    ``log_dir``; a no-op when ``log_dir`` is None or empty."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

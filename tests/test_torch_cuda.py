@@ -278,6 +278,40 @@ def test_pairwise_match_counts_chunked_on_the_card(dev, monkeypatch):
     assert torch.equal(got[fold, 22 - fold], got[fold, fold])
 
 
+@pytest.mark.parametrize("chunk", [5, 16])
+def test_precompute_matching_on_the_card(dev, chunk):
+    """The 12-frame pan's 21 frame pairs: one launch of the batched entry
+    a chunk, every field equal to the plain run's under one seed."""
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        make_pairs, precompute_frontend, precompute_matching,
+    )
+    from photogrammetry_tpu_torch.sfm.incremental import SfmConfig
+    from photogrammetry_tpu_torch.synth.star_scene import (
+        StarSceneConfig, generate_sequence,
+    )
+
+    cfg = SfmConfig()
+    frames = torch.tensor(generate_sequence(StarSceneConfig(
+        num_frames=12, image_size=(240, 320), focal=260.0,
+        supersample=2))["frames"], dtype=torch.float32, device=dev)
+    feats = precompute_frontend(frames, make_pairs(cfg.frontend, device=dev),
+                                cfg.frontend)
+
+    def run(plain):
+        return precompute_matching(
+            feats, cfg.frontend, torch.Generator(device=dev).manual_seed(3),
+            12, cfg.ransac_threshold, cfg.ransac_samples // 2, chunk=chunk,
+            plain=plain)
+
+    before = hamming.hamming_distance_matrix_pairs.launches
+    got = run(False)
+    assert hamming.hamming_distance_matrix_pairs.launches == \
+        before + -(-21 // chunk)
+    for a, b in zip(got, run(True)):
+        assert torch.equal(a, b)
+    assert int(got.num1[1:].min()) > 40
+
+
 @pytest.mark.parametrize("mode", ["rotation", "revisit", "revisit_sim3",
                                   "essential"])
 def test_close_loops_every_mode_on_the_card(dev, mode):

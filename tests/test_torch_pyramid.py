@@ -157,9 +157,9 @@ def test_convert_carries_pyramid_octaves():
     _, _, cfg = from_jax(np.zeros((4, 2, 2), np.int32), np.eye(3), d,
                          device="cpu")
     assert cfg.pyramid_octaves == 3 and cfg.track_capacity == 3072
-    with pytest.raises(NotImplementedError, match="precompute_matching"):
-        from_jax(np.zeros((4, 2, 2), np.int32), np.eye(3),
-                 {**d, "precompute_matching": True}, device="cpu")
+    _, _, cfg = from_jax(np.zeros((4, 2, 2), np.int32), np.eye(3),
+                         {**d, "precompute_matching": True}, device="cpu")
+    assert cfg.pyramid_octaves == 3 and cfg.precompute_matching is True
 
 
 def test_run_sfm_cli_pyramid(tmp_path, capsys, small_pan):
