@@ -72,6 +72,17 @@ Phases, each printing one JSON line with its seconds:
      pyramid's features, K = 1024; the batched entry at Q = 16 and the
      tail's Q = 5 (graph replay, call, plain, batched ``cdist(p=0)``,
      bound on the bits and masks of the frames the chunk reads);
+     fused: single ``run_incremental_sfm`` runs at SFM_SEED, diagnostics
+     off: the staged loop twice and once more in a spawned process,
+     ``fused_steady_steps=True`` (its first steady frame the warm-up, the
+     capture, then CUDA-graph replays), ``run_incremental_sfm_fused``
+     (the same capture) and ``read_free`` with ``export=False`` and
+     ``export_sfm_result``: all five bit-identical to the first staged
+     run (rs, ts, landmarks, costs), the read-free run a
+     ``DeviceSfmResult`` on the card bootstrapping at
+     min(bootstrap_max_defer, F-1) with ATE < 0.2 and > 80 landmarks; the
+     capture's graph segments and cuts a steady frame, the
+     synchronisations of one replayed frame, warm-up and capture ms;
   8. dewarp_sfm: the lens-dewarp path at full width.  The 12 frames are
      barrel-distorted once with the synthetic map at the reference
      coefficients (what that camera would have captured), then go through
@@ -213,11 +224,16 @@ Phases, each printing one JSON line with its seconds:
      the kernels (profiled: its busy time and idle share) and with the
      plain versions (more than SUBMAP_REFINE_MIN_LANDMARKS landmarks,
      poses within SUBMAP_REFINE_POSE_SHARE of its correction);
-     timing_precompute: one ``run_incremental_sfm`` at SFM_SEED with
-     ``precompute_matching`` off and on, in turns: wall and launches
-     (unprofiled; on: the batched entry 2, the single-pair entry 0; off:
-     0 and 21), busy and idle share (one profiler session over both).
-     These four come last: nothing reads the profiler after them.
+     timing_modes: one ``run_incremental_sfm`` at SFM_SEED staged
+     (``precompute_matching`` off), with it on, with
+     ``fused_steady_steps`` and through ``run_incremental_sfm_fused``
+     (scan): wall and wrapper launches (unprofiled; on: the batched entry
+     2, the single-pair entry 0; off: 0 and 21), busy, idle share and
+     each kernel's launches by name from one profiler session over the
+     four in turn (timing_precompute and timing_fused lines; the fused
+     and scan runs' Hamming and Schur launches, inside the graphs, equal
+     the staged run's).  These four come last: nothing reads the
+     profiler after them.
 Then the ``{"kernels": [...]}`` line (each kernel's launches on every
 path, ``launches_loop`` on the loop-closure phase, ``launches_keyframes``,
 ``launches_submaps`` and ``launches_pyramid`` on the new ones, each of
@@ -228,7 +244,8 @@ row at the shard shape as ``distributed_shape``; the row at the new shape as
 ``new_shape``, at the CLIs' as ``cli_shape``; Hamming's batched entry
 as its ``batched`` row and, with its precompute-path launches and its
 times at Q = 16, K = 512, as a row of its own, ``hamming_pairs``;
-``launches_precompute`` on every row) and, last, the ok line.  Any failure
+``launches_precompute`` on every row; ``launches_fused``, the fused
+run's launches from the trace, on every row) and, last, the ok line.  Any failure
 raises and exits non-zero before the ok line.  Needs one CUDA card; exits
 2 without one.
 """
@@ -1732,47 +1749,225 @@ def drive_precompute(dev, seq, k, centers, counters, single_scale):
     return launches, rows
 
 
-def time_precompute(dev, seq, k, counters):
-    """timing_precompute, the script's last profiler session: one
-    ``run_incremental_sfm`` at SFM_SEED with ``precompute_matching`` off
-    and on, in turns: wall and launches from unprofiled calls (off, on),
-    busy and idle share from one profiler session over both (on, off).
-    The flag on launches the batched Hamming entry twice and the
-    single-pair entry never; off, the reverse (21 single launches).
-    Placed before the timing phases, a profiler session over whole SfM
-    runs left the first of their sessions empty, so it comes after
-    them."""
+KERNEL_NAMES = {"fast_score": "fast_score_kernel",
+                "brief_bits": "brief_kernel",
+                "hamming": "hamming_mma_kernel",
+                "schur": "schur_partial_kernel", "remap": "remap_kernel"}
+
+
+def time_modes(dev, seq, k, counters):
+    """timing_precompute and timing_fused, the script's last profiler
+    session: one ``run_incremental_sfm`` at SFM_SEED each way: staged
+    (``precompute_matching`` off), flag on, ``fused_steady_steps`` and
+    ``run_incremental_sfm_fused`` (scan; both replay the fused phase's
+    capture).  Wall and wrapper launches from unprofiled calls in that
+    order; busy, idle share and each kernel's launches by name from the
+    trace (those inside graph replays too, which the wrappers' counters
+    miss) from one profiler session over the four in turn (on, staged,
+    fused, scan).  The flag on launches the batched Hamming entry twice
+    and the single-pair entry never; off, the reverse (21 single
+    launches).  Placed before the timing phases, a profiler session over
+    whole SfM runs left the first of their sessions empty, so it comes
+    after them.  Returns (the precompute timing, the fused timing)."""
     from photogrammetry_tpu_torch.kernels import hamming
     from photogrammetry_tpu_torch.sfm.incremental import (
-        SfmConfig, run_incremental_sfm,
+        SfmConfig, run_incremental_sfm, run_incremental_sfm_fused,
     )
 
     counters = {**counters,
                 "hamming_pairs": hamming.hamming_distance_matrix_pairs}
-
-    def once(flag):
-        return run_incremental_sfm(seq, k, SfmConfig(
-            collect_diagnostics=False, precompute_matching=flag),
-            seed=SFM_SEED, device=dev)
-
+    cfg = SfmConfig(collect_diagnostics=False)
+    runs = {
+        "off": lambda: run_incremental_sfm(seq, k, cfg, seed=SFM_SEED,
+                                           device=dev),
+        "on": lambda: run_incremental_sfm(seq, k, SfmConfig(
+            collect_diagnostics=False, precompute_matching=True),
+            seed=SFM_SEED, device=dev),
+        "fused": lambda: run_incremental_sfm(seq, k, SfmConfig(
+            collect_diagnostics=False, fused_steady_steps=True),
+            seed=SFM_SEED, device=dev),
+        "scan": lambda: run_incremental_sfm_fused(seq, k, cfg,
+                                                  seed=SFM_SEED, device=dev)}
     timing = {}
-    for label in ("off", "on"):
+    for label, fn in runs.items():
         for c in counters.values():
             c.launches = 0
-        wall = wall_ms(lambda label=label: once(label == "on"), dev)
+        wall = wall_ms(fn, dev)
         timing[label] = dict(
             launches={n: c.launches for n, c in counters.items()},
             wall_ms=wall)
+    order = ("on", "off", "fused", "scan")
     _, profiled = profiled_runs(
-        [lambda: once(True), lambda: once(False)], dev, len(seq),
-        walls=[timing["on"]["wall_ms"], timing["off"]["wall_ms"]], top=False)
-    timing["on"]["profiled"], timing["off"]["profiled"] = profiled
-    emit({"phase": "timing_precompute", "seed": SFM_SEED, **timing})
+        [runs[label] for label in order], dev, len(seq),
+        walls=[timing[label]["wall_ms"] for label in order], top=False,
+        names=tuple(KERNEL_NAMES.values()))
+    for label, prof in zip(order, profiled):
+        timing[label]["profiled"] = prof
+    emit({"phase": "timing_precompute", "seed": SFM_SEED,
+          **{label: timing[label] for label in ("off", "on")}})
+    emit({"phase": "timing_fused", "seed": SFM_SEED,
+          "staged": timing["off"],
+          **{label: timing[label] for label in ("fused", "scan")}})
     on, off = timing["on"]["launches"], timing["off"]["launches"]
     if (on["hamming_pairs"], on["hamming"]) != (2, 0) \
             or (off["hamming_pairs"], off["hamming"]) != (0, 21):
         raise AssertionError(f"launches with the flag on / off: {timing}")
-    return timing
+    if dev.type == "cuda":
+        for label in ("fused", "scan"):
+            got = timing[label]["profiled"]["trace_launches"]
+            staged = timing["off"]["profiled"]["trace_launches"]
+            # the eager prefix alone launches fewer: the rest ran in graphs
+            missing = [n for n in ("hamming", "schur")
+                       if not 1 <= got[KERNEL_NAMES[n]]
+                       == staged[KERNEL_NAMES[n]]]
+            if missing:
+                raise AssertionError(f"{label} run's trace launches {got} "
+                                     f"against the staged run's {staged}")
+    return ({label: timing[label] for label in ("off", "on")},
+            {"staged": timing["off"], "fused": timing["fused"],
+             "scan": timing["scan"]})
+
+
+def _staged_in_child(seq, k, seed, device_type):
+    """One staged ``run_incremental_sfm`` in a spawned process (the fused
+    phase's second process, on the card): ``run_bits`` of it."""
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm,
+    )
+
+    return run_bits(run_incremental_sfm(
+        seq, k, SfmConfig(collect_diagnostics=False), seed=seed,
+        device=device_type))
+
+
+def run_bits(res):
+    """(rs, ts, landmarks, costs) of an SfmResult, as numpy."""
+    return (res.rs, res.ts, res.table.points.cpu().numpy(),
+            np.asarray(res.costs))
+
+
+def bits_equal(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def drive_fused(dev, seq, k, centers, counters):
+    """The fused phase on the 12 frames at SFM_SEED, diagnostics off: the
+    staged ``run_incremental_sfm`` twice, once more in a spawned process;
+    ``fused_steady_steps=True`` (its first steady frame the warm-up, then
+    the capture, then replays); ``run_incremental_sfm_fused`` (the same
+    capture replayed); ``read_free`` with ``export=False`` and
+    ``export_sfm_result``.  Gates: the staged runs bit-identical (rs, ts,
+    landmarks, costs) in both processes; the fused and scan runs
+    bit-identical to them; the capture's segments one more than its cuts;
+    the read-free run a ``DeviceSfmResult`` on the card that bootstraps at
+    min(bootstrap_max_defer, F-1), ATE < 0.2 and > 80 landmarks after the
+    export.  Prints each run's wall and wrapper launches (at a capture
+    they count the warm-up's and the capture's, not the replays'), the
+    capture's segments and cuts, the synchronisations of one replayed
+    frame (``set_sync_debug_mode("warn")``) and the warm-up and capture
+    ms."""
+    import multiprocessing
+    import warnings
+    from dataclasses import replace
+
+    import torch
+
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        DeviceSfmResult, SfmConfig, export_sfm_result, run_incremental_sfm,
+        run_incremental_sfm_fused, steady_step,
+    )
+    from photogrammetry_tpu_torch.sfm.metrics import trajectory_ate
+
+    cfg = SfmConfig(collect_diagnostics=False)
+    runs, bits = {}, {}
+
+    def run(label, fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        if isinstance(res, DeviceSfmResult):
+            res = export_sfm_result(res)
+        runs[label] = dict(
+            wall_ms=wall, ate=trajectory_ate(res.rs, res.ts, centers),
+            landmarks=len(res.points),
+            pose_init=[i["pose_init"] for i in res.frame_info],
+            launches={n: c.launches for n, c in counters.items()})
+        bits[label] = run_bits(res)
+        return res
+
+    for label in ("staged", "staged_again"):
+        run(label, lambda: run_incremental_sfm(seq, k, cfg, seed=SFM_SEED,
+                                               device=dev))
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        bits["second_process"] = pool.apply(_staged_in_child,
+                                            (seq, k, SFM_SEED, dev.type))
+    child_s = time.perf_counter() - t0
+    run("fused", lambda: run_incremental_sfm(
+        seq, k, replace(cfg, fused_steady_steps=True), seed=SFM_SEED,
+        device=dev))
+    step = steady_step(cfg, len(seq), dev)
+    run("scan", lambda: run_incremental_sfm_fused(seq, k, cfg,
+                                                  seed=SFM_SEED, device=dev))
+    graph = step.graph      # None on a CPU rehearsal: the step is eager
+    syncs = None
+    if graph is not None:
+        # the synchronisations of one replayed frame (the last frame's
+        # inputs are still in the capture's buffers)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                graph.replay()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sync(dev)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+    handle = {}
+
+    def read_free():
+        res = run_incremental_sfm(seq, k, replace(cfg, read_free=True),
+                                  seed=SFM_SEED, device=dev, export=False)
+        handle.update(type=type(res).__name__, device=str(res.rs.device))
+        return res
+
+    read_free_res = run("read_free", read_free)
+    boot = [i["frame"] for i in read_free_res.frame_info
+            if i["pose_init"] == "bootstrap"]
+    expect = min(cfg.bootstrap_max_defer, len(seq) - 1)
+    same = {label: bits_equal(bits["staged"], bits[label])
+            for label in ("staged_again", "second_process", "fused", "scan")}
+    result = {"phase": "fused", "frames": list(seq.shape), "seed": SFM_SEED,
+              "bit_identical_to_staged": same,
+              "segments_per_steady_frame": graph and graph.segments,
+              "cuts_per_steady_frame": graph and len(graph.cuts),
+              "syncs_per_replayed_frame": syncs,
+              "warm_up_ms": step.warm_up_ms, "capture_ms": step.capture_ms,
+              "second_process_s": child_s, "runs": runs,
+              "read_free": dict(handle, bootstrap_frames=boot,
+                                expected=expect,
+                                bootstrap_support=read_free_res.frame_info[
+                                    boot[0] - 1].get("bootstrap_support")
+                                if boot else None)}
+    emit(result)
+    bad = [f"{label} differs from the staged run"
+           for label, ok in same.items() if not ok]
+    if graph is not None and graph.segments != len(graph.cuts) + 1:
+        bad.append("segments and cuts do not pair")
+    if runs["fused"]["pose_init"].count("fused_step") < 1 \
+            or runs["scan"]["pose_init"].count("scan") < 1:
+        bad.append("no frame went through the step")
+    rf = runs["read_free"]
+    if handle.get("type") != "DeviceSfmResult" or boot != [expect] \
+            or not rf["ate"] < 0.2 or rf["landmarks"] <= 80:
+        bad.append(f"read_free run out of bounds: {result['read_free']}, "
+                   f"{rf}")
+    if bad:
+        raise AssertionError(f"fused phase: {bad}")
+    return result
 
 
 def time_sfm(dev, frames, k, counters):
@@ -2195,7 +2390,8 @@ def profiled_run(fn, dev, frames: int, wall=None, top: bool = True):
 MARKER_KERNEL = "spin_kernel"
 
 
-def profiled_runs(fns, dev, frames: int, walls=None, top: bool = True):
+def profiled_runs(fns, dev, frames: int, walls=None, top: bool = True,
+                  names=()):
     """(results, timings): one call of each of ``fns`` over ``frames``
     frames, in turn, under ONE torch.profiler session of device activity,
     the calls parted on the device by a marker kernel.  Each timing: the
@@ -2204,7 +2400,9 @@ def profiled_runs(fns, dev, frames: int, walls=None, top: bool = True):
     included), frames/s, device busy ms (the raw device events'
     durations summed: the profiler's own event list, ``key_averages``,
     takes far longer to build for a whole SfM run), idle share, with
-    ``top`` the top device ops by name, and the ms spent after the calls
+    ``top`` the top device ops by name, the count of device events whose
+    name holds each of ``names`` (a kernel's launches, those inside
+    CUDA-graph replays among them), and the ms spent after the calls
     reading the trace.  Busy time and ops are None where the profiler
     recorded nothing (and on a CPU rehearsal)."""
     import torch
@@ -2213,13 +2411,14 @@ def profiled_runs(fns, dev, frames: int, walls=None, top: bool = True):
 
     walls = walls or [None] * len(fns)
 
-    def timing(wall_ms, busy=None, ops=None, post=None):
+    def timing(wall_ms, busy=None, ops=None, post=None, launches=None):
         return dict(frames=frames, wall_ms=wall_ms,
                     frames_per_s=frames * 1e3 / wall_ms,
                     device_busy_ms=busy,
                     device_idle_share=(None if busy is None
                                        else max(0.0, 1 - busy / wall_ms)),
-                    top_device_ops=ops, profiler_post_ms=post)
+                    top_device_ops=ops, profiler_post_ms=post,
+                    **({"trace_launches": launches} if names else {}))
 
     outs, host = [], []
     if dev.type != "cuda":          # a rehearsal on the CPU: no device
@@ -2266,8 +2465,10 @@ def profiled_runs(fns, dev, frames: int, walls=None, top: bool = True):
             ops = [dict(name=name[:90], ms=t, calls=n)
                    for name, (t, n) in sorted(
                        by_name.items(), key=lambda kv: -kv[1][0])[:6]]
+        launches = {n: sum(c for key, (_, c) in by_name.items() if n in key)
+                    for n in names}
         timings.append(timing(wall if wall is not None else ms,
-                              busy or None, ops, post))
+                              busy or None, ops, post, launches))
     return outs, timings
 
 
@@ -3467,6 +3668,7 @@ def main() -> int:
                                        centers, earlier)
     launches_pre, pre_rows = timed("precompute", drive_precompute, dev, seq,
                                    k, centers, earlier, sfm_stats)
+    timed("fused", drive_fused, dev, seq, k, centers, earlier)
     with tempfile.TemporaryDirectory() as cache_dir:
         captured = capture_frames(dev, seq)
         launches = timed("dewarp_sfm", drive_dewarp_sfm, dev, seq, captured,
@@ -3508,7 +3710,8 @@ def main() -> int:
                              earlier, sfm_stats),
             "submaps": timed("submaps", drive_submaps, dev, seq, k, rs_gt,
                              centers, earlier, cache_dir)}
-        timed("timing_precompute", time_precompute, dev, seq, k, earlier)
+        _, fused_timing = timed("timing_modes", time_modes, dev, seq, k,
+                                earlier)
     # each kernel's row is taken at the shape the dewarp + SfM path gives it
     timings["schur"] = schur_rows["F%d_T%d" % SCHUR_SHAPES[0]]
     timings["remap"] = remap_rows["stack_f32"]
@@ -3554,6 +3757,7 @@ def main() -> int:
                        "bound_ms", "bound_by", "plain_ms", "library_ms",
                        "launches_a_call")}
                       for name, row in loop_rows.items()})
+    fused_launches = fused_timing["fused"]["profiled"]["trace_launches"]
     # launches: of the dewarp_sfm run, which goes through all five kernels;
     # the earlier paths' counts, the pipeline's and the loop path's beside it
     emit({"kernels": [
@@ -3577,6 +3781,8 @@ def main() -> int:
              launches_frontend_clis=launches_clis.get(n, 0),
              launches_distributed=launches_dist.get(n, 0),
              launches_precompute=launches_pre.get(n, 0),
+             # the fused run's, from the trace (inside the graphs too)
+             launches_fused=fused_launches[KERNEL_NAMES[n]],
              **{f"launches_{path}": got.get(n, 0)
                 for path, got in new_paths.items()},
              new_shape=(dict(row=new_shape[n], **shape_rows[new_shape[n]])
@@ -3600,6 +3806,9 @@ def main() -> int:
              library_ms=pre_row["library_call_ms"],
              library_ms_from="call_ms", call_ms=pre_row["call_ms"],
              launches_loop=launches_loop["hamming_pairs"],
+             # never inside the step: its wrapper's count in the fused run
+             launches_fused=fused_timing["fused"]["launches"][
+                 "hamming_pairs"],
              shape=dict(pairs=pre_row["pairs"],
                         keypoints=pre_row["keypoints"],
                         bits=pre_row["bits"]))]})

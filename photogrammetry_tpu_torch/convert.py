@@ -28,8 +28,6 @@ from photogrammetry_tpu_torch.sfm.pose_graph import PoseGraph, PoseGraphSim3
 from photogrammetry_tpu_torch.sfm.tracks import TrackTable
 
 JAX_ONLY_KEYS = ("use_pallas_matching", "use_pallas_detect")
-# JAX SfmConfig fields the port leaves out, with their "off" values
-JAX_ONLY_SFM = {"fused_steady_steps": (None, False), "read_free": (False,)}
 STATE_TYPES = {cls.__name__: cls for cls in (TrackTable, BAState, BAProblem,
                                               PoseGraph, PoseGraphSim3)}
 
@@ -56,10 +54,6 @@ def _sfm_config(d: dict) -> SfmConfig:
                          "cannot be carried across; set the port's "
                          "SfmConfig.mesh to a parallel.make_mesh(...) mesh "
                          "instead")
-    for key, off in JAX_ONLY_SFM.items():
-        if key in cfg and cfg.pop(key) not in off:
-            raise NotImplementedError(f"SfmConfig.{key}={d[key]!r} is not "
-                                      f"ported")
     cfg["frontend"] = _frontend_config(cfg.get("frontend", {}))
     return _config(SfmConfig, cfg)
 
@@ -68,9 +62,8 @@ def from_jax(pairs: np.ndarray, k: np.ndarray, config: dict, device="cuda"):
     """→ (pairs (P, 2, 2) int32 tensor, K (3, 3) float32 tensor, config) on
     ``device``.  ``config`` is ``dataclasses.asdict`` of a JAX
     FrontendConfig (→ FrontendConfig, the ``use_pallas_*`` keys dropped)
-    or of a JAX SfmConfig (→ SfmConfig, its TPU-dispatch fields dropped,
-    NotImplementedError when one of them is on; ValueError for a mesh, a
-    JAX object: the port's ``SfmConfig.mesh`` takes a
+    or of a JAX SfmConfig (→ SfmConfig, every field carried; ValueError
+    for a mesh, a JAX object: the port's ``SfmConfig.mesh`` takes a
     ``parallel.make_mesh`` mesh)."""
     dev = resolve_device(device)
     cfg = (_sfm_config(config) if "frontend" in config

@@ -240,7 +240,7 @@ def bundle_adjust(state: BAState, prob: BAProblem,
     if use_pose_prior:
         cost = cost + prior_terms(state)[0]
     cost0 = cost
-    lam = torch.tensor(init_lambda, dtype=torch.float32, device=dev)
+    lam = torch.full((), init_lambda, dtype=torch.float32, device=dev)
     h_pr = torch.full((f,), w2, device=dev) if use_pose_prior else None
     for _ in range(num_iterations):
         r, j_cam, j_pt, _, _ = residuals_and_jacobians(state, prob,

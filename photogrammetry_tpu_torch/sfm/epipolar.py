@@ -9,7 +9,9 @@ so that a test can feed it the JAX package's own draws.
 
 The null vector stays the smallest eigenvector of the 9x9 Gram matrix
 (``eigh``); the JAX package's inverse-iteration variant is a documented
-accuracy loss and is not ported.
+accuracy loss and is not ported.  Both decompositions go through
+``utils.graphs.sync_point``: on CUDA they read their error flag back to
+the host, so a CUDA-graph capture of the SfM step is cut at each of them.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import NamedTuple
 import torch
 
 from photogrammetry_tpu_torch.core.camera import to_homogeneous
+from photogrammetry_tpu_torch.utils.graphs import sync_point
+from photogrammetry_tpu_torch.utils.indexing import take_row
 from photogrammetry_tpu_torch.utils.padding import front_indices
 
 
@@ -49,6 +53,14 @@ def _finite_or_eye(a: torch.Tensor):
     return ok, torch.where(ok[..., None, None], a, eye)
 
 
+def _eigenvectors(a: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.eigh(a).eigenvectors
+
+
+def _svd(a: torch.Tensor):
+    return tuple(torch.linalg.svd(a))
+
+
 def smallest_eigvec(a: torch.Tensor) -> torch.Tensor:
     """Eigenvector of the smallest eigenvalue of symmetric (…, D, D).
 
@@ -57,8 +69,8 @@ def smallest_eigvec(a: torch.Tensor) -> torch.Tensor:
     landmark weighted by 0 still puts NaN into a PnP refit's Gram matrix,
     whose NaN pose the caller then rejects)."""
     ok, a = _finite_or_eye(a)
-    v = torch.linalg.eigh(a)
-    return torch.where(ok[..., None], v.eigenvectors[..., :, 0], torch.nan)
+    v = sync_point(_eigenvectors, a)
+    return torch.where(ok[..., None], v[..., :, 0], torch.nan)
 
 
 def svd_or_nan(a: torch.Tensor):
@@ -66,7 +78,7 @@ def svd_or_nan(a: torch.Tensor):
     entry give NaN U, S and Vh, as ``jnp.linalg.svd`` does; the other
     items keep their bits."""
     ok, a = _finite_or_eye(a)
-    u, s, vt = torch.linalg.svd(a)
+    u, s, vt = sync_point(_svd, a)
     return (torch.where(ok[..., None, None], u, torch.nan),
             torch.where(ok[..., None], s, torch.nan),
             torch.where(ok[..., None, None], vt, torch.nan))
@@ -191,7 +203,7 @@ def ransac_on_hypotheses(fs: torch.Tensor, sample_idx: torch.Tensor,
     r = epipolar_residuals(fs, xy1, xy2, kind=residual)              # (H, N)
     counts = (_inlier_test(r, threshold, signed_residual) & mask).sum(-1)
     best = torch.argmax(counts)
-    f = fs[best]
+    f = take_row(fs, best)
     inliers = _inlier_test(epipolar_residuals(f, xy1, xy2, kind=residual),
                            threshold, signed_residual) & mask
     if refit:
@@ -205,7 +217,7 @@ def ransac_on_hypotheses(fs: torch.Tensor, sample_idx: torch.Tensor,
             inliers = torch.where(better, inliers2, inliers)
     return RansacResult(f=f, inliers=inliers,
                         num_inliers=inliers.sum().to(torch.int32),
-                        best_sample=sample_idx[best].to(torch.int32))
+                        best_sample=take_row(sample_idx, best).to(torch.int32))
 
 
 def essential_from_fundamental(f: torch.Tensor, k1: torch.Tensor,

@@ -42,6 +42,7 @@ from photogrammetry_tpu_torch.ops.refine import refine_subpixel_dense
 from photogrammetry_tpu_torch.sfm.epipolar import (
     draw_samples, ransac_fundamental,
 )
+from photogrammetry_tpu_torch.utils.indexing import take_row
 from photogrammetry_tpu_torch.utils.padding import PaddedPoints
 
 NMS_IMPLS = {"static": nms_keypoints_static,
@@ -298,10 +299,12 @@ def precompute_frontend(frames: torch.Tensor, pairs: torch.Tensor,
     return _cat([describe(frames[s:s + chunk]) for s in range(0, f, chunk)])
 
 
-def frame_features(feats: DescribedFrame, t: int) -> DescribedFrame:
-    """Select frame ``t`` from a precomputed (F-leading) DescribedFrame."""
-    return DescribedFrame(points=PaddedPoints(*(x[t] for x in feats.points)),
-                          bits=feats.bits[t], xy=feats.xy[t])
+def frame_features(feats: DescribedFrame, t) -> DescribedFrame:
+    """Select frame ``t`` (an int, or a 0-dim index tensor on the
+    features' device) from a precomputed (F-leading) DescribedFrame."""
+    return DescribedFrame(
+        points=PaddedPoints(*(take_row(x, t) for x in feats.points)),
+        bits=take_row(feats.bits, t), xy=take_row(feats.xy, t))
 
 
 def match_pair(f1: DescribedFrame, f2: DescribedFrame,

@@ -13,41 +13,61 @@ sequential-draw loop of photogrammetry_tpu/sfm/incremental.py).
 
 Every stage is tensor code on the frames' device; the only host reads
 before the final export are the bootstrap trigger's median displacement
-(one per deferred frame, as in the JAX package), with
-``collect_diagnostics`` the per-frame counters, and with a checkpoint the
-snapshot itself (state and cost).  Where the JAX package
-branches on device data (``lax.cond`` in the PnP stages) the port computes
-the branch and selects with ``torch.where``; so it draws the PnP samples
-on every steady frame, where JAX splits its key only when the rescue runs.
-All randomness comes from one ``torch.Generator`` on the device seeded
-with ``seed``, drawn in JAX's order: the gate, the skip gate, the
-bootstrap attempts, then PnP.
+(one per deferred frame, as in the JAX package; none with
+``SfmConfig.read_free``, which bootstraps at min(bootstrap_max_defer,
+F-1)), with ``collect_diagnostics`` the per-frame counters (one read a
+frame), and with a checkpoint the snapshot itself (state and cost).  Where
+the JAX package branches on device data (``lax.cond`` in the PnP stages)
+the port computes the branch and selects with ``torch.where``; so it draws
+the PnP samples on every steady frame, where JAX splits its key only when
+the rescue runs.  All randomness comes from one ``torch.Generator`` on the
+device seeded with ``seed``, drawn in JAX's order: the gate, the skip gate,
+the bootstrap attempts, then PnP.  Frame indices inside the per-frame
+stages are 0-dim tensors on the device (``frame_ids[t]``), so that one
+CUDA-graph capture of a steady frame serves every frame.
+
+A steady frame (the map exists) is one function, ``_steady_frame``:
+chaining (``_track_frame``), pose (``_localize_frame``) and the map update
+(``_map_frame``).  The staged loop calls it frame by frame; with
+``SfmConfig.fused_steady_steps`` the frames from t = 2 on go through
+``_SteadyStep``, the same function eagerly on the CPU and as a captured
+CUDA graph on the card (``utils.graphs.SegmentedGraph``: cut into
+segments at the ``eigh`` / ``svd`` calls, which read their error flag back
+to the host; replayed segment after segment, each cut's call made
+between two), captured once for each (configuration, frame count,
+device, plain) and reused across ``run_incremental_sfm_robust``'s
+restarts.  ``run_incremental_sfm_fused`` runs the frames after the
+bootstrap through the same step (``pose_init="scan"``).  All three give
+the same bits.
 
 With ``SfmConfig.precompute_matching`` every (t, t-1) and (t, t-2) match
 and its epipolar gate is computed once after the frontend
 (``frontend.precompute_matching``: a chunk of pairs a launch of the
-batched Hamming kernel, each pair's gate drawn from its own generator),
-and frame t chains its tracks from row t of the result.
+batched Hamming kernel, each pair's gate drawn from its own generator,
+whose base seed is one host read of the run's generator), and frame t
+chains its tracks from row t of the result.
 
 With ``checkpoint_path`` the state (poses, landmarks, track table)
 snapshots every ``checkpoint_every`` frames and at the last frame
 (``store/checkpoint.py``, the JAX package's file format), deferred frames
-included, and a rerun resumes after the snapshot's frame.
+included (not the fused frames, as in the JAX package), and a rerun
+resumes after the snapshot's frame.
 
 With ``SfmConfig.mesh`` (a ``parallel.make_mesh`` mesh) the windowed and
 the final BA run as ``distributed_bundle_adjust``, landmarks sharded over
 the mesh's "tracks" ranks; every rank runs the rest of the run identically
-with the same seeds (SPMD), so every rank holds the same result.
+with the same seeds (SPMD), so every rank holds the same result.  The
+fused step runs the windowed BA unsharded, as the JAX package's does.
 
-Left out of the port (the JAX package's workarounds for TPU dispatch
-cost): ``fused_steady_steps`` /
-``run_incremental_sfm_fused``, ``read_free`` and ``export=False`` /
-``DeviceSfmResult``.
+``export=False`` returns a ``DeviceSfmResult`` (poses, costs and the
+bootstrap support still on the device); ``export_sfm_result`` makes the
+one batched transfer.
 """
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -60,7 +80,7 @@ from photogrammetry_tpu_torch.sfm.epipolar import (
     draw_samples, ransac_fundamental, smallest_eigvec,
 )
 from photogrammetry_tpu_torch.sfm.frontend import (
-    FrontendConfig, PrecompMatches, frame_features, make_pairs, match_pair,
+    FrontendConfig, frame_features, make_pairs, match_pair,
     precompute_frontend, precompute_matching,
 )
 from photogrammetry_tpu_torch.sfm.pnp import (
@@ -76,15 +96,18 @@ from photogrammetry_tpu_torch.sfm.two_view import two_view_pipeline
 from photogrammetry_tpu_torch.store.checkpoint import (
     load_checkpoint, save_checkpoint,
 )
+from photogrammetry_tpu_torch.utils.graphs import (
+    SegmentedGraph, allow_sync, tree_leaves, tree_map,
+)
+from photogrammetry_tpu_torch.utils.indexing import put_row, take_row
 from photogrammetry_tpu_torch.utils.reductions import nanmedian
 
 
 @dataclass(frozen=True)
 class SfmConfig:
-    """The JAX SfmConfig without its TPU-dispatch fields (see the module
-    docstring); the field comments of the JAX package hold for the rest.
-    ``mesh``: a ``torch.distributed`` DeviceMesh (``parallel.make_mesh``)
-    for the sharded BA, or None."""
+    """The JAX SfmConfig; its field comments hold here.  ``mesh``: a
+    ``torch.distributed`` DeviceMesh (``parallel.make_mesh``) for the
+    sharded BA, or None."""
     frontend: FrontendConfig = FrontendConfig(
         suppression_radius=4.0, hamming_threshold=80, max_keypoints=512,
         detection_threshold=20.0)
@@ -122,13 +145,14 @@ class SfmConfig:
     # frontend_chunk pairs a batched Hamming launch
     precompute_matching: bool = False
     mesh: object = None
-
-
-def _set_row(x: torch.Tensor, i, v) -> torch.Tensor:
-    """``x.at[i].set(v)``: a copy of x with row i replaced."""
-    y = x.clone()
-    y[i] = v
-    return y
+    # the steady frames (t >= 2, map built) through one step: a captured
+    # CUDA graph on the card, the same function eagerly on the CPU; None
+    # is off, as in the JAX package.  Frames so run record no
+    # diagnostics and take no checkpoint
+    fused_steady_steps: bool | None = None
+    # no host read before the export: the bootstrap fires at
+    # min(bootstrap_max_defer, F-1) instead of on the displacement read
+    read_free: bool = False
 
 
 def _depth_ok(mask, depths, min_depth, max_depth):
@@ -303,8 +327,8 @@ def _bootstrap_map(generator, table: TrackTable, rs, ts, kmat,
         tv = two_view_pipeline(generator, table.obs[t], table.obs[0], both,
                                kmat, threshold=config.ransac_threshold,
                                num_samples=config.ransac_samples)
-        rs_c = _set_row(rs, t, tv.r.T)
-        ts_c = _set_row(ts, t, -tv.r.T @ tv.t)
+        rs_c = put_row(rs, t, tv.r.T)
+        ts_c = put_row(ts, t, -tv.r.T @ tv.t)
         cand = _triangulate_tracks_nview(
             table._replace(obs_mask=pair_mask), rs_c, ts_c, kmat,
             config.min_depth, config.max_depth)._replace(
@@ -316,8 +340,8 @@ def _bootstrap_map(generator, table: TrackTable, rs, ts, kmat,
                 cand.points, cand.obs[i], pnp_mask, kmat, rs_c[i], ts_c[i],
                 min_inliers=config.min_pnp_inliers,
                 threshold=config.pnp_threshold)
-            rs_c = _set_row(rs_c, i, r_i)
-            ts_c = _set_row(ts_c, i, t_i)
+            rs_c = put_row(rs_c, i, r_i)
+            ts_c = put_row(ts_c, i, t_i)
         prob = _ba_problem(cand, kmat)
         res = bundle_adjust(BAState(rs=rs_c, ts=ts_c, points=cand.points),
                             prob, num_iterations=20, fixed_cameras=fixed,
@@ -360,6 +384,36 @@ class SfmResult:
         return self.table.points.cpu().numpy()[hp]
 
 
+class DeviceSfmResult:
+    """Device-side result, no host read taken: what
+    ``run_incremental_sfm(..., export=False)`` returns.  rs (F, 3, 3), ts
+    (F, 3), the table and the costs (0-dim tensors) on the device;
+    ``pending_support`` the bootstrap frame's info dict and its support (a
+    device scalar), or None.  ``export_sfm_result`` reads it back."""
+
+    def __init__(self, rs, ts, table, costs, frame_info, pending_support):
+        self.rs = rs
+        self.ts = ts
+        self.table = table
+        self.costs = costs
+        self.frame_info = frame_info
+        self.pending_support = pending_support
+
+
+def export_sfm_result(dev: DeviceSfmResult) -> SfmResult:
+    """The one batched device-to-host transfer that closes a run: poses,
+    costs and the bootstrap support (into its frame's info as
+    ``bootstrap_support``)."""
+    vals = dev.costs + ([dev.pending_support[1].to(torch.float32)]
+                        if dev.pending_support else [])
+    scalars = torch.stack(vals).cpu() if vals else torch.zeros(0)
+    if dev.pending_support is not None:
+        dev.pending_support[0]["bootstrap_support"] = int(scalars[-1])
+    return SfmResult(dev.rs.cpu().numpy(), dev.ts.cpu().numpy(), dev.table,
+                     [float(c) for c in scalars[:len(dev.costs)]],
+                     dev.frame_info)
+
+
 def _gate(generator, m, config: SfmConfig):
     """Epipolar gate of a match set: mask & RANSAC-F inliers."""
     idx = draw_samples(generator, m.mask, config.ransac_samples // 2, 8)
@@ -367,18 +421,265 @@ def _gate(generator, m, config: SfmConfig):
                                        config.ransac_threshold).inliers
 
 
-def _chain_extend_device(table: TrackTable, kp_track_prev2, t: int,
-                         feats, pm: PrecompMatches, capacity: int):
-    """Frame t's track chaining from row t of the precomputed matches and
-    gates: consecutive and skip claims merged, the table extended.
-    Returns (table, the kp_track snapshot before it, chained count as a
-    device scalar)."""
-    tid = merge_skip_matches(table.kp_track, kp_track_prev2, pm.idx1[t],
-                             pm.good1[t], pm.idx2[t], pm.good2[t], capacity)
+def _track_frame(generator, feats, pm, cur, table: TrackTable,
+                 kp_track_prev2, t, config: SfmConfig, plain: bool,
+                 diagnostics: bool):
+    """Frame t's track chaining: match frame t-1 and, where frame t-2's
+    keypoint map ``kp_track_prev2`` exists, t-2 → epipolar gates → merge →
+    extend the table; with ``pm`` row t of the precomputed matches and
+    gates instead.  ``cur``: frame t's features; t a 0-dim device index.
+    Returns (table, the keypoint -> track map before it, (matches, gated,
+    chained) device scalars or None)."""
+    fc = config.frontend
     kp_track_prev = table.kp_track
-    table = extend_tracks_with_tid(table, t, feats.xy[t],
-                                   feats.points.mask[t], tid)
-    return table, kp_track_prev, (tid >= 0).sum().to(torch.int32)
+    if pm is not None:
+        kp2 = (kp_track_prev2 if kp_track_prev2 is not None
+               else torch.full_like(table.kp_track, -1))
+        good = take_row(pm.good1, t)
+        tid = merge_skip_matches(kp_track_prev, kp2, take_row(pm.idx1, t),
+                                 good, take_row(pm.idx2, t),
+                                 take_row(pm.good2, t),
+                                 config.track_capacity)
+        num = take_row(pm.num1, t)
+    else:
+        # rows = the current frame's keypoints; only RANSAC-inlier matches
+        # may chain tracks
+        m = match_pair(cur, frame_features(feats, t - 1), fc, plain=plain)
+        good = _gate(generator, m, config)
+        if kp_track_prev2 is not None:
+            # skip-frame matching: unclaimed keypoints also match t-2
+            m2 = match_pair(cur, frame_features(feats, t - 2), fc,
+                            plain=plain)
+            good2 = _gate(generator, m2, config)
+            tid = merge_skip_matches(kp_track_prev, kp_track_prev2,
+                                     m.idx2, good, m2.idx2, good2,
+                                     config.track_capacity)
+        else:
+            tid = torch.where(
+                good, kp_track_prev[torch.clamp(m.idx2, min=0).long()],
+                -1).to(torch.int32)
+        num = m.num
+    table = extend_tracks_with_tid(table, t, cur.xy, cur.points.mask, tid)
+    diag = ((num, good.sum(), (tid >= 0).sum()) if diagnostics else None)
+    return table, kp_track_prev, diag
+
+
+def _localize_frame(generator, cur, table: TrackTable, rs, ts, kmat, t,
+                    config: SfmConfig, plain: bool):
+    """A mapped frame's pose: frame t-1's pose, rescued by RANSAC PnP
+    against the map when its median reprojection error exceeds
+    ``pnp_rescue_px`` (drawn every frame, chosen on the device) →
+    motion-only BA on all frames (camera t free) → map-guided
+    re-association of the keypoints whose chain broke.  Returns (table,
+    rs, ts, (the PnP decision's device scalars or None, re-associated
+    count or None))."""
+    r_prev, t_prev = take_row(rs, t - 1), take_row(ts, t - 1)
+    pnp_diag = None
+    if config.use_pnp:
+        pnp_mask = take_row(table.obs_mask, t) & table.has_point
+        r_t, t_t, pnp_diag = _pnp_rescue_device(
+            draw_pnp_samples(generator, pnp_mask, config.pnp_samples),
+            table.points, take_row(table.obs, t), pnp_mask, kmat,
+            r_prev, t_prev, min_inliers=config.min_pnp_inliers,
+            rescue_px=config.pnp_rescue_px, threshold=config.pnp_threshold)
+    else:
+        r_t, t_t = r_prev, t_prev
+    rs = put_row(rs, t, r_t)
+    ts = put_row(ts, t, t_t)
+    frames = torch.arange(rs.shape[0], device=rs.device)
+    res = bundle_adjust(BAState(rs=rs, ts=ts, points=table.points),
+                        _ba_problem(table, kmat), num_iterations=10,
+                        fixed_cameras=(frames == t).to(torch.float32),
+                        optimize_points=False, plain=plain)
+    rs, ts = res.state.rs, res.state.ts
+    n_re = None
+    if config.reassociate:
+        table, n_re = reassociate_to_landmarks(
+            table, t, cur.xy, cur.points.mask, take_row(rs, t),
+            take_row(ts, t), kmat, config.reassociate_px)
+    return table, rs, ts, (pnp_diag, n_re)
+
+
+def _bundle_adjust_map(table: TrackTable, rs, ts, kmat, fixed,
+                       iterations: int, mesh, plain: bool):
+    """BA of the whole map (``distributed_bundle_adjust`` over ``mesh``
+    where one is given).  Returns (rs, ts, table, cost)."""
+    state = BAState(rs=rs, ts=ts, points=table.points)
+    if mesh is not None:
+        # imported here: torch.distributed.tensor takes a second
+        from photogrammetry_tpu_torch.parallel.dist_ba import (
+            distributed_bundle_adjust,
+        )
+
+        res = distributed_bundle_adjust(
+            state, _ba_problem(table, kmat), mesh, num_iterations=iterations,
+            fixed_cameras=fixed, plain=plain)
+    else:
+        res = bundle_adjust(state, _ba_problem(table, kmat),
+                            num_iterations=iterations, fixed_cameras=fixed,
+                            plain=plain)
+    return (res.state.rs, res.state.ts,
+            table._replace(points=res.state.points), res.cost)
+
+
+def _map_frame(table: TrackTable, rs, ts, kmat, t, config: SfmConfig,
+               plain: bool, mesh=None):
+    """A posed frame's map update: triangulate new tracks → windowed BA
+    (cameras t+1-window..t free, frame 0 the SE(3) gauge) → rescale the
+    monocular gauge → prune.  Returns (table, rs, ts, cost)."""
+    if config.nview_triangulation:
+        table = _triangulate_tracks_nview(table, rs, ts, kmat,
+                                          config.min_depth, config.max_depth)
+    else:
+        first, last = first_last_observations(table)
+        table = _triangulate_tracks(table, rs, ts, kmat, first, last,
+                                    config.min_depth, config.max_depth)
+    frames = torch.arange(rs.shape[0], device=rs.device)
+    fixed = ((frames > t - config.window) & (frames <= t)
+             & (frames > 0)).to(torch.float32)
+    rs, ts, table, cost = _bundle_adjust_map(table, rs, ts, kmat, fixed,
+                                             config.ba_iterations, mesh,
+                                             plain)
+    # monocular scale gauge: keep the 0-1 baseline at unit length
+    rs, ts, table = _rescale_gauge(rs, ts, table)
+    table = _prune_observations(table, rs, ts, kmat, config.prune_px)
+    return table, rs, ts, cost
+
+
+def _steady_frame(generator, feats, pm, kmat, carry, t, config: SfmConfig,
+                  plain: bool, diagnostics: bool = False, mesh=None):
+    """One frame once the map exists: the staged loop's body and the fused
+    step.  carry = (table, rs, ts, frame t-2's keypoint -> track map or
+    None); t a 0-dim device index.  Returns ((table, rs, ts, frame t-1's
+    keypoint -> track map), cost, (chaining, pose) diagnostics)."""
+    table, rs, ts, kp_track_prev2 = carry
+    cur = frame_features(feats, t)
+    table, kp_track_prev, track_diag = _track_frame(
+        generator, feats, pm, cur, table, kp_track_prev2, t, config, plain,
+        diagnostics)
+    table, rs, ts, pose_diag = _localize_frame(generator, cur, table, rs, ts,
+                                               kmat, t, config, plain)
+    table, rs, ts, cost = _map_frame(table, rs, ts, kmat, t, config, plain,
+                                     mesh)
+    return (table, rs, ts, kp_track_prev), cost, (track_diag, pose_diag)
+
+
+def _read_diagnostics(info: dict, track_diag, pose_diag=None) -> None:
+    """A frame's counters in one host read, into ``info`` under the JAX
+    package's keys."""
+    pnp, n_re = pose_diag or (None, None)
+    vals = [*track_diag, *(pnp or ()), *(() if n_re is None else (n_re,))]
+    host = torch.stack([v.to(torch.float64) for v in vals]).tolist()
+    info.update(matches=int(host[0]), gated_matches=int(host[1]),
+                chained=int(host[2]))
+    if pnp is not None:
+        rescued, used, support, prior_med, pnp_inl, pnp_med = host[3:9]
+        info.update(pnp_support=int(support), prior_med_px=prior_med)
+        if rescued:
+            info.update(pnp_inliers=int(pnp_inl), pnp_med_px=pnp_med)
+        if used:
+            info["pose_init"] = "pnp"
+    if n_re is not None:
+        info["reassociated"] = int(host[-1])
+
+
+class _SteadyStep:
+    """The fused steady step of one configuration: ``step(feats, pm,
+    kmat, carry, t)`` → (carry, cost), ``_steady_frame`` without
+    diagnostics or mesh, t a 0-dim device index, drawing from
+    ``generator``.
+
+    On the CPU the step runs eagerly.  On CUDA the first call runs it
+    eagerly on a side stream (the warm-up a capture needs: library handles
+    and workspaces, kernel loads; its result is that frame's) and then
+    captures it as a ``SegmentedGraph`` over static copies of its inputs;
+    every later call copies its inputs into them (feats, pm and kmat only
+    when they are other tensors than last time) and replays, returning
+    copies of the outputs, which the next replay overwrites.  A capture
+    that fails raises.  ``warm_up_ms`` and ``capture_ms``: the first
+    call's two parts by the host clock, each ending in a synchronize;
+    ``graph``: the capture (``segments``, ``cuts``)."""
+
+    def __init__(self, config: SfmConfig, device: torch.device, plain: bool):
+        self.config = config
+        self.device = device
+        self.plain = plain
+        self.generator = torch.Generator(device=device)
+        self.graph: SegmentedGraph | None = None
+        self.warm_up_ms = self.capture_ms = None
+        self._inputs = self._outputs = self._loaded = None
+
+    def _step(self, feats, pm, kmat, carry, t):
+        carry, cost, _ = _steady_frame(self.generator, feats, pm, kmat, carry,
+                                       t, self.config, self.plain)
+        return carry, cost
+
+    def __call__(self, feats, pm, kmat, carry, t):
+        if self.device.type != "cuda":
+            return self._step(feats, pm, kmat, carry, t)
+        if self.graph is None:
+            return self._warm_up_and_capture(feats, pm, kmat, carry, t)
+        run = (feats, pm, kmat)
+        if self._loaded is None or any(
+                a is not b for a, b in zip(self._loaded, run)):
+            for dst, src in zip(tree_leaves(self._inputs[:3]),
+                                tree_leaves(run)):
+                dst.copy_(src)
+            self._loaded = run
+        for dst, src in zip(tree_leaves(self._inputs[3:]),
+                            tree_leaves((carry, t))):
+            dst.copy_(src)
+        self.graph.replay()
+        return tree_map(torch.clone, self._outputs)
+
+    def _warm_up_and_capture(self, feats, pm, kmat, carry, t):
+        dev = self.device
+        with allow_sync():
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            out = self._step(feats, pm, kmat, carry, t)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        inputs = tree_map(torch.clone, (feats, pm, kmat, carry, t))
+        with allow_sync():
+            torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        graph = SegmentedGraph(dev, generators=(self.generator,),
+                               stream=stream)
+        self._outputs = graph.capture(self._step, *inputs)
+        self.graph, self._inputs, self._loaded = graph, inputs, (feats, pm,
+                                                                 kmat)
+        with allow_sync():
+            torch.cuda.synchronize(dev)
+        self.warm_up_ms = (t1 - t0) * 1e3
+        self.capture_ms = (time.perf_counter() - t1) * 1e3
+        return out
+
+
+# The CUDA captures, one for each (configuration, frame count, device,
+# plain): the configuration fixes the keypoint and track capacities, so
+# every shape the step sees.  Process-wide, as a jit cache is: the robust
+# run's restarts replay the first one's capture.
+_STEADY_STEPS: dict = {}
+
+
+def steady_step(config: SfmConfig, num_frames: int, device,
+                plain: bool = False) -> _SteadyStep:
+    """The fused steady step for a run of ``num_frames`` frames: a new
+    eager one on the CPU, the cached capture on CUDA (shared by the
+    configurations that differ only in fields the step does not read:
+    ``fused_steady_steps``, ``read_free``, ``collect_diagnostics``)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return _SteadyStep(config, dev, plain)
+    config = replace(config, fused_steady_steps=None, read_free=False,
+                     collect_diagnostics=False)
+    key = (config, num_frames, dev, plain)
+    if key not in _STEADY_STEPS:
+        _STEADY_STEPS[key] = _SteadyStep(config, dev, plain)
+    return _STEADY_STEPS[key]
 
 
 def _fit_frames(rs, ts, table: TrackTable, num_frames: int):
@@ -417,11 +718,75 @@ def _resume_kp_track(table: TrackTable, prev, done: int) -> TrackTable:
         kp_track=torch.where(ok, nearest, -1).to(torch.int32))
 
 
+def _sequence_inputs(frames, k, config: SfmConfig, generator, dev, plain):
+    """(K, the batched frontend's features, the precomputed matches or
+    None, an empty track table, identity poses) for a run on ``dev``."""
+    fc = config.frontend
+    num_frames = len(frames)
+    kmat = torch.as_tensor(np.asarray(k), dtype=torch.float32).to(dev)
+    # a float32 tensor already on ``dev`` (the dewarp stage's output) is
+    # used as it is: no host round trip, no second copy
+    if not isinstance(frames, torch.Tensor):
+        frames = np.asarray(frames)
+    frames_t = torch.as_tensor(frames, dtype=torch.float32,
+                               device=dev).contiguous()
+    octaves = max(1, config.pyramid_octaves)
+    feats = precompute_frontend(frames_t, make_pairs(fc, device=dev), fc,
+                                chunk=config.frontend_chunk, octaves=octaves,
+                                plain=plain)
+    pm = None
+    if config.precompute_matching and num_frames >= 2:
+        pm = precompute_matching(feats, fc, generator, num_frames,
+                                 config.ransac_threshold,
+                                 config.ransac_samples // 2,
+                                 chunk=config.frontend_chunk, plain=plain)
+    table = make_track_table(num_frames, config.track_capacity,
+                             fc.max_keypoints * octaves, device=dev)
+    rs = torch.eye(3, device=dev).repeat(num_frames, 1, 1)
+    ts = torch.zeros((num_frames, 3), device=dev)
+    return kmat, feats, pm, table, rs, ts
+
+
+def _bootstrap_displacement(table: TrackTable, t: int) -> float:
+    """The median displacement (px) of the tracks frame 0 shares with
+    frame t, 0 under 16 shared tracks: the adaptive bootstrap trigger's
+    one host read."""
+    both = table.obs_mask[0] & table.obs_mask[t]
+    d = table.obs[t] - table.obs[0]
+    return float(torch.where(
+        both.sum() >= 16,
+        nanmedian(torch.where(both, torch.sqrt((d * d).sum(-1)), torch.nan)),
+        0.0))
+
+
+def _final_ba(table: TrackTable, rs, ts, kmat, config: SfmConfig,
+              plain: bool, costs: list):
+    """The global BA rounds after the loop (camera 0 the gauge), each
+    round after the first re-triangulating every track from the converged
+    poses and pruning; each round's cost appended to ``costs``.  Returns
+    (table, rs, ts)."""
+    if config.final_ba_iterations <= 0 or rs.shape[0] < 2:
+        return table, rs, ts
+    fixed = torch.ones((rs.shape[0],), device=rs.device)
+    fixed[0] = 0.0
+    for rnd in range(1 + max(0, config.final_refine_rounds)):
+        if rnd > 0:
+            table = _retriangulate_all(table, rs, ts, kmat, config.min_depth,
+                                       config.max_depth)
+            table = _prune_observations(table, rs, ts, kmat, config.prune_px)
+        rs, ts, table, cost = _bundle_adjust_map(
+            table, rs, ts, kmat, fixed, config.final_ba_iterations,
+            config.mesh, plain)
+        rs, ts, table = _rescale_gauge(rs, ts, table)
+        costs.append(cost)
+    return table, rs, ts
+
+
 def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
                         seed: int = 0, checkpoint_path: str | None = None,
                         checkpoint_every: int = 4, resume: bool = True,
                         export: bool = True, *, device="cuda",
-                        plain: bool = False) -> SfmResult:
+                        plain: bool = False):
     """frames: (F, H, W) grayscale, a numpy array or a tensor on any device
     (one on ``device`` is not copied); k: (3, 3) intrinsics.
 
@@ -431,44 +796,29 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
     run on the card.  With ``checkpoint_path`` the state snapshots every
     ``checkpoint_every`` frames and at the last one, and (``resume``) a run
     whose checkpoint exists resumes after its frame; a checkpoint of a
-    shorter run is extended to this sequence.  ``export=False`` is not
-    ported.
+    shorter run is extended to this sequence.  ``export=False`` returns a
+    ``DeviceSfmResult`` with no host read taken (it needs
+    ``read_free=True``, ``collect_diagnostics=False`` and no checkpoint);
+    ``export_sfm_result`` finishes it.
     """
-    if not export:
-        raise NotImplementedError("export=False (DeviceSfmResult) is not "
-                                  "ported")
     config = config or SfmConfig()
-    fc = config.frontend
+    if not export and (not config.read_free or config.collect_diagnostics
+                       or checkpoint_path):
+        raise ValueError("export=False needs read_free=True, "
+                         "collect_diagnostics=False and no checkpoint_path")
     dev = resolve_device(device)
     num_frames = len(frames)
-    gen = torch.Generator(device=dev)
+    # fused_steady_steps None resolves to off, as in the JAX package
+    step = (steady_step(config, num_frames, dev, plain)
+            if config.fused_steady_steps else None)
+    gen = step.generator if step is not None else torch.Generator(device=dev)
     gen.manual_seed(seed)
-    pairs = make_pairs(fc, device=dev)
-    kmat = torch.as_tensor(np.asarray(k), dtype=torch.float32).to(dev)
-    # a float32 tensor already on ``dev`` (the dewarp stage's output) is
-    # used as it is: no host round trip, no second copy
-    if not isinstance(frames, torch.Tensor):
-        frames = np.asarray(frames)
-    frames_t = torch.as_tensor(frames, dtype=torch.float32,
-                               device=dev).contiguous()
-
-    octaves = max(1, config.pyramid_octaves)
-    table = make_track_table(num_frames, config.track_capacity,
-                             fc.max_keypoints * octaves, device=dev)
-    rs = torch.eye(3, device=dev).repeat(num_frames, 1, 1)
-    ts = torch.zeros((num_frames, 3), device=dev)
+    kmat, feats, pm, table, rs, ts = _sequence_inputs(frames, k, config, gen,
+                                                      dev, plain)
+    frame_ids = torch.arange(num_frames, device=dev)
     costs = []
     frame_info = []
     start_frame = 1
-    feats = precompute_frontend(frames_t, pairs, fc,
-                                chunk=config.frontend_chunk, octaves=octaves,
-                                plain=plain)
-    pm = None
-    if config.precompute_matching and num_frames >= 2:
-        pm = precompute_matching(feats, fc, gen, num_frames,
-                                 config.ransac_threshold,
-                                 config.ransac_samples // 2,
-                                 chunk=config.frontend_chunk, plain=plain)
     if checkpoint_path and resume and os.path.isfile(checkpoint_path):
         rs, ts, table, done, _ = load_checkpoint(checkpoint_path, device=dev)
         rs, ts, table = _fit_frames(rs, ts, table, num_frames)
@@ -476,12 +826,11 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
             return SfmResult(rs.cpu().numpy(), ts.cpu().numpy(), table,
                              costs, frame_info)
         start_frame = done + 1
-        prev = frame_features(feats, done)
-        table = _resume_kp_track(table, prev, done)
+        table = _resume_kp_track(table, frame_features(feats, done), done)
         map_ready = bool(table.has_point.any())
     else:
-        prev = frame_features(feats, 0)
-        table = start_tracks(table, 0, prev.xy, prev.points.mask)
+        first = frame_features(feats, 0)
+        table = start_tracks(table, 0, first.xy, first.points.mask)
         map_ready = False
 
     def snapshot(t, table, rs, ts, cost):
@@ -490,177 +839,64 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
             save_checkpoint(checkpoint_path, rs, ts, table, t, metadata={
                 "frame": t, "cost": None if cost is None else float(cost)})
 
-    prev2 = None            # features of frame t-2
     kp_track_prev2 = None   # frame t-2 keypoint -> track id snapshot
     pending_support = None  # device scalar, read at export
 
-    def full_ba(table, rs, ts, fixed, iterations):
-        state = BAState(rs=rs, ts=ts, points=table.points)
-        if config.mesh is not None:
-            # imported here: torch.distributed.tensor takes a second
-            from photogrammetry_tpu_torch.parallel.dist_ba import (
-                distributed_bundle_adjust,
-            )
-
-            res = distributed_bundle_adjust(
-                state, _ba_problem(table, kmat), config.mesh,
-                num_iterations=iterations, fixed_cameras=fixed, plain=plain)
-        else:
-            res = bundle_adjust(state, _ba_problem(table, kmat),
-                                num_iterations=iterations,
-                                fixed_cameras=fixed, plain=plain)
-        costs.append(res.cost)
-        return res.state.rs, res.state.ts, \
-            table._replace(points=res.state.points)
-
     for t in range(start_frame, num_frames):
-        cur = frame_features(feats, t)
+        t_dev = frame_ids[t]
         info = {"frame": t, "pose_init": "prior"}
-        if pm is not None:
-            kp2 = (kp_track_prev2 if kp_track_prev2 is not None
-                   else torch.full_like(table.kp_track, -1))
-            table, kp_track_prev, n_chained = _chain_extend_device(
-                table, kp2, t, feats, pm, config.track_capacity)
+        if map_ready:
+            carry = (table, rs, ts, kp_track_prev2)
+            if step is not None and t >= 2 and kp_track_prev2 is not None:
+                (table, rs, ts, kp_track_prev2), cost = step(
+                    feats, pm, kmat, carry, t_dev)
+                costs.append(cost)
+                frame_info.append({"frame": t, "pose_init": "fused_step"})
+                continue
+            (table, rs, ts, kp_track_prev), cost, diag = _steady_frame(
+                gen, feats, pm, kmat, carry, t_dev, config, plain,
+                config.collect_diagnostics, config.mesh)
+            costs.append(cost)
             if config.collect_diagnostics:
-                info.update(matches=int(pm.num1[t]),
-                            gated_matches=int(pm.good1[t].sum()),
-                            chained=int(n_chained))
+                _read_diagnostics(info, *diag)
         else:
-            m = match_pair(cur, prev, fc, plain=plain)  # rows = current kps
-            # only RANSAC-inlier matches may chain tracks
-            good = _gate(gen, m, config)
-            kp_track_prev = table.kp_track
-            if prev2 is not None:
-                # skip-frame matching: unclaimed keypoints also match t-2
-                m2 = match_pair(cur, prev2, fc, plain=plain)
-                good2 = _gate(gen, m2, config)
-                tid = merge_skip_matches(kp_track_prev, kp_track_prev2,
-                                         m.idx2, good, m2.idx2, good2,
-                                         config.track_capacity)
-            else:
-                tid = torch.where(
-                    good, kp_track_prev[torch.clamp(m.idx2, min=0).long()],
-                    -1).to(torch.int32)
-            table = extend_tracks_with_tid(table, t, cur.xy,
-                                           cur.points.mask, tid)
+            table, kp_track_prev, diag = _track_frame(
+                gen, feats, pm, frame_features(feats, t_dev), table,
+                kp_track_prev2, t_dev, config, plain,
+                config.collect_diagnostics)
             if config.collect_diagnostics:
-                info.update(matches=int(m.num),
-                            gated_matches=int(good.sum()),
-                            chained=int((tid >= 0).sum()))
-
-        if not map_ready:
+                _read_diagnostics(info, diag)
             force = (t == num_frames - 1) or (t >= config.bootstrap_max_defer)
-            both = table.obs_mask[0] & table.obs_mask[t]
-            d = table.obs[t] - table.obs[0]
-            disp_d = torch.where(
-                both.sum() >= 16,
-                nanmedian(torch.where(both, torch.sqrt((d * d).sum(-1)),
-                                      torch.nan)), 0.0)
-            disp = float(disp_d)    # the one host read of a deferred frame
-            info["bootstrap_disp_px"] = round(disp, 1)
-            if disp >= config.bootstrap_min_disp_px or force:
-                rs, ts, table, support = _bootstrap_map(
-                    gen, table, rs, ts, kmat, config, t, num_frames, plain)
-                map_ready = True
-                info.update(pose_init="bootstrap", bootstrap_pair=(0, t))
-                pending_support = (info, support)
-            else:
+            trigger = force
+            if not config.read_free:
+                disp = _bootstrap_displacement(table, t)
+                info["bootstrap_disp_px"] = round(disp, 1)
+                trigger = disp >= config.bootstrap_min_disp_px or force
+            if not trigger:
                 info.update(pose_init="deferred")
                 frame_info.append(info)
-                prev2, kp_track_prev2 = prev, kp_track_prev
-                prev = cur
+                kp_track_prev2 = kp_track_prev
                 # deferred frames keep the cadence too: a crash in the
                 # poseless phase resumes mid-deferral
                 snapshot(t, table, rs, ts, None)
                 continue
-        else:
-            # pose init: the previous pose, rescued by RANSAC PnP against
-            # the map when its median reprojection error exceeds
-            # pnp_rescue_px
-            if config.use_pnp:
-                pnp_mask = table.obs_mask[t] & table.has_point
-                r_t, t_t, diag = _pnp_rescue_device(
-                    draw_pnp_samples(gen, pnp_mask, config.pnp_samples),
-                    table.points, table.obs[t], pnp_mask, kmat,
-                    rs[t - 1], ts[t - 1],
-                    min_inliers=config.min_pnp_inliers,
-                    rescue_px=config.pnp_rescue_px,
-                    threshold=config.pnp_threshold)
-                if config.collect_diagnostics:
-                    rescued, used, support_d, prior_med, pnp_inl, pnp_med \
-                        = diag
-                    info.update(pnp_support=int(support_d),
-                                prior_med_px=float(prior_med))
-                    if bool(rescued):
-                        info.update(pnp_inliers=int(pnp_inl),
-                                    pnp_med_px=float(pnp_med))
-                    if bool(used):
-                        info["pose_init"] = "pnp"
-            else:
-                r_t, t_t = rs[t - 1], ts[t - 1]
-            rs = _set_row(rs, t, r_t)
-            ts = _set_row(ts, t, t_t)
-            # motion-only BA on all frames so far (only camera t free)
-            fixed = torch.zeros((num_frames,), device=dev)
-            fixed[t] = 1.0
-            res = bundle_adjust(BAState(rs=rs, ts=ts, points=table.points),
-                                _ba_problem(table, kmat), num_iterations=10,
-                                fixed_cameras=fixed, optimize_points=False,
-                                plain=plain)
-            rs, ts = res.state.rs, res.state.ts
-            # map-guided re-association of keypoints whose chain broke
-            if config.reassociate:
-                table, n_re = reassociate_to_landmarks(
-                    table, t, cur.xy, cur.points.mask, rs[t], ts[t], kmat,
-                    config.reassociate_px)
-                if config.collect_diagnostics:
-                    info["reassociated"] = int(n_re)
-
-        if config.nview_triangulation:
-            table = _triangulate_tracks_nview(table, rs, ts, kmat,
-                                              config.min_depth,
-                                              config.max_depth)
-        else:
-            first, last = first_last_observations(table)
-            table = _triangulate_tracks(table, rs, ts, kmat, first, last,
-                                        config.min_depth, config.max_depth)
-
-        # windowed full BA: freeze cameras before the window and frame 0
-        fixed = torch.zeros((num_frames,), device=dev)
-        fixed[max(0, t + 1 - config.window):t + 1] = 1.0
-        fixed[0] = 0.0  # SE(3) gauge
-        rs, ts, table = full_ba(table, rs, ts, fixed, config.ba_iterations)
-        # monocular scale gauge: keep the 0-1 baseline at unit length
-        rs, ts, table = _rescale_gauge(rs, ts, table)
-        table = _prune_observations(table, rs, ts, kmat, config.prune_px)
+            rs, ts, table, support = _bootstrap_map(
+                gen, table, rs, ts, kmat, config, t, num_frames, plain)
+            map_ready = True
+            info.update(pose_init="bootstrap", bootstrap_pair=(0, t))
+            pending_support = (info, support)
+            table, rs, ts, cost = _map_frame(table, rs, ts, kmat, t_dev,
+                                             config, plain, config.mesh)
+            costs.append(cost)
         frame_info.append(info)
-        prev2, kp_track_prev2 = prev, kp_track_prev
-        prev = cur
+        kp_track_prev2 = kp_track_prev
         snapshot(t, table, rs, ts, costs[-1])
 
-    if config.final_ba_iterations > 0 and num_frames >= 2:
-        fixed = torch.ones((num_frames,), device=dev)
-        fixed[0] = 0.0
-        for rnd in range(1 + max(0, config.final_refine_rounds)):
-            if rnd > 0:
-                # re-triangulate every track from the converged poses
-                table = _retriangulate_all(table, rs, ts, kmat,
-                                           config.min_depth,
-                                           config.max_depth)
-                table = _prune_observations(table, rs, ts, kmat,
-                                            config.prune_px)
-            rs, ts, table = full_ba(table, rs, ts, fixed,
-                                    config.final_ba_iterations)
-            rs, ts, table = _rescale_gauge(rs, ts, table)
-
-    # one batched device->host transfer for the result
-    vals = costs + ([pending_support[1].to(torch.float32)]
-                    if pending_support else [])
-    scalars = torch.stack(vals).cpu() if vals else torch.zeros(0)
-    if pending_support is not None:
-        pending_support[0]["bootstrap_support"] = int(scalars[-1])
-    return SfmResult(rs.cpu().numpy(), ts.cpu().numpy(), table,
-                     [float(c) for c in scalars[:len(costs)]], frame_info)
+    table, rs, ts = _final_ba(table, rs, ts, kmat, config, plain, costs)
+    result = DeviceSfmResult(rs=rs, ts=ts, table=table, costs=costs,
+                             frame_info=frame_info,
+                             pending_support=pending_support)
+    return export_sfm_result(result) if export else result
 
 
 def reconstruction_quality(res: SfmResult, k, err_px: float = 2.0,
@@ -712,3 +948,74 @@ def run_incremental_sfm_robust(frames, k, config: SfmConfig | None = None,
     best = min((c for c in candidates if c[0] >= 0.95 * smax),
                key=lambda c: c[1])
     return best[2]
+
+
+def run_incremental_sfm_fused(frames, k, config: SfmConfig | None = None,
+                              seed: int = 0, *, device="cuda",
+                              plain: bool = False) -> SfmResult:
+    """Incremental SfM with every frame after the bootstrap run by the
+    fused steady step (``pose_init="scan"``), with no host read between
+    them; the same bits as ``run_incremental_sfm`` with the same seed.
+
+    The deferral and the bootstrap (with the bootstrap frame's own
+    triangulation, windowed BA, rescale and prune) run on the host as in
+    the staged loop, reading each deferred frame's displacement and the
+    bootstrap support; then the steady frames, frame after frame, through
+    ``steady_step`` (on the card the step's graph segments, replayed: the
+    ``eigh`` / ``svd`` cuts keep the remainder from being one graph); then
+    the final BA.  No checkpoint and no diagnostics in this mode; needs
+    ``mesh=None``.  ``device`` and ``plain`` as for
+    ``run_incremental_sfm``.
+    """
+    config = config or SfmConfig()
+    if config.mesh is not None:
+        raise ValueError("run_incremental_sfm_fused is single-device: "
+                         "SfmConfig.mesh must be None")
+    dev = resolve_device(device)
+    num_frames = len(frames)
+    step = steady_step(config, num_frames, dev, plain)
+    gen = step.generator
+    gen.manual_seed(seed)
+    kmat, feats, pm, table, rs, ts = _sequence_inputs(frames, k, config, gen,
+                                                      dev, plain)
+    frame_ids = torch.arange(num_frames, device=dev)
+    costs = []
+    frame_info = []
+    first = frame_features(feats, 0)
+    table = start_tracks(table, 0, first.xy, first.points.mask)
+    map_ready = False
+    kp_track_prev2 = None
+    t = 1
+    # host prefix: deferral and bootstrap, the only host decisions
+    while t < num_frames and not map_ready:
+        t_dev = frame_ids[t]
+        table, kp_track_prev, _ = _track_frame(
+            gen, feats, pm, frame_features(feats, t_dev), table,
+            kp_track_prev2, t_dev, config, plain, False)
+        force = (t == num_frames - 1) or (t >= config.bootstrap_max_defer)
+        if (_bootstrap_displacement(table, t) >= config.bootstrap_min_disp_px
+                or force):
+            rs, ts, table, support = _bootstrap_map(
+                gen, table, rs, ts, kmat, config, t, num_frames, plain)
+            map_ready = True
+            frame_info.append({"frame": t, "pose_init": "bootstrap",
+                               "bootstrap_pair": (0, t),
+                               "bootstrap_support": int(support)})
+            table, rs, ts, cost = _map_frame(table, rs, ts, kmat, t_dev,
+                                             config, plain)
+            costs.append(cost)
+        else:
+            frame_info.append({"frame": t, "pose_init": "deferred"})
+        kp_track_prev2 = kp_track_prev
+        t += 1
+    # the steady frames: the step frame after frame, no host read between
+    if map_ready:
+        carry = (table, rs, ts, kp_track_prev2)
+        for s in range(t, num_frames):
+            carry, cost = step(feats, pm, kmat, carry, frame_ids[s])
+            costs.append(cost)
+            frame_info.append({"frame": s, "pose_init": "scan"})
+        table, rs, ts, _ = carry
+    table, rs, ts = _final_ba(table, rs, ts, kmat, config, plain, costs)
+    return export_sfm_result(DeviceSfmResult(rs, ts, table, costs,
+                                             frame_info, None))

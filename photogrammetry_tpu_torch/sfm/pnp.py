@@ -17,6 +17,7 @@ import torch
 
 from photogrammetry_tpu_torch.core.camera import normalize_pixels
 from photogrammetry_tpu_torch.sfm.epipolar import smallest_eigvec, svd_or_nan
+from photogrammetry_tpu_torch.utils.indexing import take_row
 
 
 def dlt_pnp(points_w: torch.Tensor, xn: torch.Tensor,
@@ -54,8 +55,8 @@ def dlt_pnp(points_w: torch.Tensor, xn: torch.Tensor,
     eye = torch.eye(3, dtype=xs.dtype, device=xs.device)
     top = torch.cat([scale[..., None] * eye,
                      (-scale * c)[..., :, None]], dim=-1)          # (…,3,4)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=xs.dtype,
-                          device=xs.device).expand(*top.shape[:-2], 1, 4)
+    bottom = torch.eye(4, dtype=xs.dtype, device=xs.device)[3:].expand(
+        *top.shape[:-2], 1, 4)
     p = p @ torch.cat([top, bottom], dim=-2)
 
     p = p * torch.sign(torch.linalg.det(p[..., :3]))[..., None, None]
@@ -117,7 +118,7 @@ def ransac_pnp(sample_idx: torch.Tensor, points_w: torch.Tensor,
     rs, ts = dlt_pnp(points_w[sample_idx], xn[sample_idx])   # (H,3,3),(H,3)
     counts = _inliers(rs, ts, points_w, xy, mask, k, threshold).sum(-1)
     best = torch.argmax(counts)
-    r, t = rs[best], ts[best]
+    r, t = take_row(rs, best), take_row(ts, best)
     inliers = _inliers(r, t, points_w, xy, mask, k, threshold)
     if refit:
         r2, t2 = dlt_pnp(points_w, xn, weights=inliers.to(torch.float32))

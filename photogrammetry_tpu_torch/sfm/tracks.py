@@ -8,6 +8,8 @@ an out-of-bounds sentinel index (``cap``); torch has no drop mode, so
 ``_drop_set`` scatters into a copy one row longer and slices the sentinel
 row off.  Indices are never clamped: a clamp would alias the sentinel onto
 a real track.  Functions return new tables and leave their inputs intact.
+A frame index is a Python int or a 0-dim integer tensor on the table's
+device (the SfM step's, which a CUDA graph replays for every frame).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from photogrammetry_tpu_torch import resolve_device
+from photogrammetry_tpu_torch.utils.indexing import put_row, take_row
 
 
 class TrackTable(NamedTuple):
@@ -53,22 +56,26 @@ def _drop_set(row: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     entries at the sentinel len(row) are written to a spare row and
     dropped."""
     buf = torch.cat([row, row[:1]])
-    buf[idx.to(torch.int64)] = val
+    if isinstance(val, torch.Tensor):
+        buf[idx.to(torch.int64)] = val
+    else:   # a Python value set by index would be copied over from the host
+        buf.index_fill_(0, idx.to(torch.int64), val)
     return buf[:-1]
 
 
-def _write_frame(table: TrackTable, frame_idx: int, tid_w: torch.Tensor,
+def _write_frame(table: TrackTable, frame_idx, tid_w: torch.Tensor,
                  xy: torch.Tensor):
     """obs/obs_mask with frame ``frame_idx`` set at the (sentinel-padded)
     track ids ``tid_w``."""
-    obs = table.obs.clone()
-    obs_mask = table.obs_mask.clone()
-    obs[frame_idx] = _drop_set(obs[frame_idx], tid_w, xy)
-    obs_mask[frame_idx] = _drop_set(obs_mask[frame_idx], tid_w, True)
+    obs = put_row(table.obs, frame_idx,
+                  _drop_set(take_row(table.obs, frame_idx), tid_w, xy))
+    obs_mask = put_row(table.obs_mask, frame_idx,
+                       _drop_set(take_row(table.obs_mask, frame_idx), tid_w,
+                                 True))
     return obs, obs_mask
 
 
-def start_tracks(table: TrackTable, frame_idx: int, xy: torch.Tensor,
+def start_tracks(table: TrackTable, frame_idx, xy: torch.Tensor,
                  kp_mask: torch.Tensor) -> TrackTable:
     """Open a new track for every valid keypoint of the first frame."""
     cap = table.points.shape[0]
@@ -84,7 +91,7 @@ def start_tracks(table: TrackTable, frame_idx: int, xy: torch.Tensor,
         dropped=table.dropped + (kp_mask & ~fit).sum().to(torch.int32))
 
 
-def _chain(table: TrackTable, frame_idx: int, xy: torch.Tensor,
+def _chain(table: TrackTable, frame_idx, xy: torch.Tensor,
            kp_mask: torch.Tensor, chained: torch.Tensor,
            tid: torch.Tensor) -> TrackTable:
     """Write chained keypoints onto ``tid`` and open fresh tracks for the
@@ -105,7 +112,7 @@ def _chain(table: TrackTable, frame_idx: int, xy: torch.Tensor,
         dropped=table.dropped + (need_new & ~fits).sum().to(torch.int32))
 
 
-def extend_tracks(table: TrackTable, frame_idx: int, xy: torch.Tensor,
+def extend_tracks(table: TrackTable, frame_idx, xy: torch.Tensor,
                   kp_mask: torch.Tensor, match_prev: torch.Tensor,
                   match_valid: torch.Tensor) -> TrackTable:
     """Chain frame ``frame_idx`` keypoints onto existing tracks.
@@ -118,7 +125,7 @@ def extend_tracks(table: TrackTable, frame_idx: int, xy: torch.Tensor,
     return _chain(table, frame_idx, xy, kp_mask, chained, prev_tid)
 
 
-def extend_tracks_with_tid(table: TrackTable, frame_idx: int,
+def extend_tracks_with_tid(table: TrackTable, frame_idx,
                            xy: torch.Tensor, kp_mask: torch.Tensor,
                            tid: torch.Tensor) -> TrackTable:
     """Chain keypoints onto explicit track ids (-1 = no match); valid but
@@ -141,8 +148,9 @@ def merge_skip_matches(kp_track_prev: torch.Tensor,
         good_prev, kp_track_prev[torch.clamp(idx_prev, min=0).long()], -1)
     tid2 = torch.where(
         good_prev2, kp_track_prev2[torch.clamp(idx_prev2, min=0).long()], -1)
-    claimed = torch.zeros((capacity + 1,), dtype=torch.bool, device=dev)
-    claimed[torch.where(tid1 >= 0, tid1, capacity).long()] = True
+    claimed = torch.zeros((capacity + 1,), dtype=torch.bool,
+                          device=dev).index_fill_(
+        0, torch.where(tid1 >= 0, tid1, capacity).long(), True)
     tid2 = torch.where((tid2 >= 0)
                        & ~claimed[torch.clamp(tid2, min=0).long()], tid2, -1)
     ar = torch.arange(k, dtype=torch.int32, device=dev)
@@ -156,7 +164,7 @@ def merge_skip_matches(kp_track_prev: torch.Tensor,
     return torch.where(tid1 >= 0, tid1, tid2).to(torch.int32)
 
 
-def reassociate_to_landmarks(table: TrackTable, frame_idx: int,
+def reassociate_to_landmarks(table: TrackTable, frame_idx,
                              xy: torch.Tensor, kp_mask: torch.Tensor,
                              r_t: torch.Tensor, t_t: torch.Tensor,
                              k: torch.Tensor, radius: float):
@@ -176,7 +184,8 @@ def reassociate_to_landmarks(table: TrackTable, frame_idx: int,
     proj = torch.stack([k[0, 0] * pc[:, 0] / zs + k[0, 2],
                         k[1, 1] * pc[:, 1] / zs + k[1, 2]], dim=-1)
 
-    cand = table.has_point & (z > 1e-3) & ~table.obs_mask[frame_idx]
+    cand = table.has_point & (z > 1e-3) & ~take_row(table.obs_mask,
+                                                    frame_idx)
     nobs = table.obs_mask.sum(0)
     tid_now = table.kp_track
     own = nobs[torch.clamp(tid_now, min=0).long()]
@@ -190,13 +199,13 @@ def reassociate_to_landmarks(table: TrackTable, frame_idx: int,
     mutual = best_kp[best_lm] == torch.arange(kcount, device=xy.device)
     take = eligible & mutual & (best_d <= radius)
 
-    obs = table.obs.clone()
-    obs_mask = table.obs_mask.clone()
     old_tid = torch.where(take & (tid_now >= 0), tid_now, cap)
-    row = _drop_set(obs_mask[frame_idx], old_tid, False)
+    row = _drop_set(take_row(table.obs_mask, frame_idx), old_tid, False)
     new_tid = torch.where(take, best_lm, cap)
-    obs_mask[frame_idx] = _drop_set(row, new_tid, True)
-    obs[frame_idx] = _drop_set(obs[frame_idx], new_tid, xy)
+    obs_mask = put_row(table.obs_mask, frame_idx,
+                       _drop_set(row, new_tid, True))
+    obs = put_row(table.obs, frame_idx,
+                  _drop_set(take_row(table.obs, frame_idx), new_tid, xy))
     kp_track = torch.where(take, best_lm, tid_now).to(torch.int32)
     return (table._replace(obs=obs, obs_mask=obs_mask, kp_track=kp_track),
             take.sum().to(torch.int32))

@@ -9,7 +9,8 @@ FAST, BRIEF and Hamming outputs are integers: bit-exact.  The Schur
 products are f32 sums of 3T terms taken in another order than the plain
 einsums: within the worst-case bound ``schur.error_bound``.  The remap
 kernel repeats its plain version's f32 arithmetic operation for operation
-(no FMA): bit-exact for float32 and uint8.
+(no FMA): bit-exact for float32 and uint8.  The fused SfM step, captured
+as CUDA graphs and replayed, gives the eager staged run's bits.
 """
 import numpy as np
 import pytest
@@ -815,3 +816,136 @@ def test_distributed_ba_world_of_one_on_the_card(dev):
             assert torch.equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------ the fused steady step as CUDA graphs
+
+
+def _pan8():
+    """tests/test_torch_sfm.py's 8-frame 480x640 pan."""
+    from photogrammetry_tpu_torch.synth.star_scene import (
+        StarSceneConfig, generate_sequence,
+    )
+
+    return generate_sequence(StarSceneConfig(num_frames=8, supersample=2))
+
+
+def _same_run(a, b) -> bool:
+    return (np.array_equal(a.rs, b.rs) and np.array_equal(a.ts, b.ts)
+            and torch.equal(a.table.points, b.table.points)
+            and a.costs == b.costs)
+
+
+@pytest.mark.parametrize("pm", [False, True])
+def test_fused_step_replay_bit_identical(dev, pm):
+    """The captured step replayed over the 8-frame pan gives the eager
+    staged run's bits: the first fused run (its first steady frame the
+    warm-up, the rest replays), a second (the capture reused: every
+    steady frame a replay) and ``run_incremental_sfm_fused`` (the same
+    capture)."""
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm, run_incremental_sfm_fused,
+        steady_step,
+    )
+
+    scene = _pan8()
+    frames, k = scene["frames"], scene["k"]
+    cfg = SfmConfig(collect_diagnostics=False, precompute_matching=pm)
+    staged = run_incremental_sfm(frames, k, cfg, seed=3, device=dev)
+    fused = SfmConfig(collect_diagnostics=False, precompute_matching=pm,
+                      fused_steady_steps=True)
+    for _ in range(2):
+        got = run_incremental_sfm(frames, k, fused, seed=3, device=dev)
+        assert [i["pose_init"] for i in got.frame_info].count(
+            "fused_step") == 4
+        assert _same_run(staged, got)
+    scan = run_incremental_sfm_fused(frames, k, cfg, seed=3, device=dev)
+    assert _same_run(staged, scan)
+    graph = steady_step(cfg, 8, dev).graph
+    assert graph.segments == len(graph.cuts) + 1
+
+
+@pytest.mark.parametrize("pm,segments", [(False, 22), (True, 6)])
+def test_fused_step_syncs_only_at_its_cuts(dev, monkeypatch, pm, segments):
+    """The step under ``set_sync_debug_mode("error")``: its warm-up, its
+    capture and its replays raise on any synchronisation other than the
+    eigh / svd cuts.  22 segments a frame without precompute_matching (21
+    cuts: two epipolar gates of four 8-point solves, an eigh and an svd
+    each; two DLT PnP solves, an eigh and an svd each; the n-view
+    triangulation's eigh), 6 with it (no gates in the step)."""
+    from photogrammetry_tpu_torch.sfm import incremental as inc
+
+    call = inc._SteadyStep.__call__
+
+    def strict(self, *args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return call(self, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(inc._SteadyStep, "__call__", strict)
+    scene = _pan8()
+    # a configuration of its own: a fresh capture
+    cfg = inc.SfmConfig(collect_diagnostics=False, fused_steady_steps=True,
+                        precompute_matching=pm, ba_iterations=12)
+    res = inc.run_incremental_sfm(scene["frames"], scene["k"], cfg, seed=3,
+                                  device=dev)
+    assert np.isfinite(res.rs).all()
+    graph = inc.steady_step(cfg, 8, dev).graph
+    assert graph.segments == segments == len(graph.cuts) + 1
+
+
+def test_staged_sfm_same_bits_in_a_second_process(dev):
+    """The staged SfM on the 8-frame pan gives the same bits in a second,
+    spawned process on the card as in this one."""
+    import multiprocessing as mp
+
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm,
+    )
+
+    scene = _pan8()
+    cfg = SfmConfig(collect_diagnostics=False)
+    res = run_incremental_sfm(scene["frames"], scene["k"], cfg, seed=3,
+                              device=dev)
+    with mp.get_context("spawn").Pool(1) as pool:
+        rs, ts, points, costs = pool.apply(
+            _staged_run_numpy, (scene["frames"], scene["k"], 3))
+    assert np.array_equal(res.rs, rs) and np.array_equal(res.ts, ts)
+    assert np.array_equal(res.table.points.cpu().numpy(), points)
+    assert res.costs == costs
+
+
+def _staged_run_numpy(frames, k, seed):
+    """A staged run on the card, in numpy (for a spawned process)."""
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm,
+    )
+
+    res = run_incremental_sfm(frames, k, SfmConfig(collect_diagnostics=False),
+                              seed=seed, device="cuda")
+    return res.rs, res.ts, res.table.points.cpu().numpy(), res.costs
+
+
+def test_fused_capture_failure_raises(dev, monkeypatch):
+    """A capture that fails raises out of the run: here a host read
+    planted in the step's prune stage, which the eager bootstrap frame and
+    warm-up take and a capture cannot.  Nothing falls back to the staged
+    loop, and the step stays uncaptured."""
+    from photogrammetry_tpu_torch.sfm import incremental as inc
+
+    prune = inc._prune_observations
+
+    def reads(table, *args):
+        float(table.points.sum())
+        return prune(table, *args)
+
+    monkeypatch.setattr(inc, "_prune_observations", reads)
+    scene = _pan8()
+    cfg = inc.SfmConfig(collect_diagnostics=False, fused_steady_steps=True,
+                        ba_iterations=11)
+    with pytest.raises(RuntimeError):
+        inc.run_incremental_sfm(scene["frames"], scene["k"], cfg, seed=3,
+                                device=dev)
+    assert inc.steady_step(cfg, 8, dev).graph is None

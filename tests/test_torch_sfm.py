@@ -274,8 +274,13 @@ def test_run_incremental_sfm_beside_jax(pan):
     j_support, j_med = jinc.reconstruction_quality(ref, k)
     assert support == j_support
     np.testing.assert_allclose(med, j_med, rtol=1e-4)
-    with pytest.raises(NotImplementedError):    # still a TPU workaround
-        inc.run_incremental_sfm(frames, k, cfg, export=False, device="cpu")
+    # export=False: the device-side handle, read back by export_sfm_result
+    dres = inc.run_incremental_sfm(
+        frames, k, dataclasses.replace(cfg, read_free=True), export=False,
+        device="cpu")
+    assert isinstance(dres, inc.DeviceSfmResult)
+    assert isinstance(dres.rs, torch.Tensor)
+    assert isinstance(inc.export_sfm_result(dres), inc.SfmResult)
 
 
 def test_robust_picks_best_restart(pan):
@@ -401,8 +406,10 @@ def test_convert_carries_config_and_state(table_state):
     d2 = dataclasses.asdict(jinc.SfmConfig(window=5, ba_iterations=7,
                                            fused_steady_steps=False))
     assert from_jax(pairs, np.eye(3), d2, device="cpu")[2].window == 5
-    with pytest.raises(NotImplementedError, match="read_free"):
-        from_jax(pairs, np.eye(3), {**d, "read_free": True}, device="cpu")
+    got = from_jax(pairs, np.eye(3), {**d, "read_free": True,
+                                      "fused_steady_steps": True},
+                   device="cpu")[2]
+    assert got.read_free and got.fused_steady_steps
     table = table_state[0]
     got = state_from_jax(table, device="cpu")
     assert isinstance(got, TrackTable)
