@@ -1,0 +1,10 @@
+"""Puts the benchmark's folder and the repository root on ``sys.path``, as
+``benchmarks/run.py`` does."""
+import os
+import sys
+
+BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH)
+for p in (BENCH, ROOT):
+    if p not in sys.path:
+        sys.path.insert(0, p)
