@@ -1761,12 +1761,13 @@ def time_modes(dev, seq, k, counters):
     (``precompute_matching`` off), flag on, ``fused_steady_steps`` and
     ``run_incremental_sfm_fused`` (scan; both replay the fused phase's
     capture).  Wall and wrapper launches from unprofiled calls in that
-    order; busy, idle share and each kernel's launches by name from the
-    trace (those inside graph replays too, which the wrappers' counters
-    miss) from one profiler session over the four in turn (on, staged,
-    fused, scan).  The flag on launches the batched Hamming entry twice
-    and the single-pair entry never; off, the reverse (21 single
-    launches).  Placed before the timing phases, a profiler session over
+    order (a replay adds the launches its capture recorded, so the fused
+    and scan runs' Hamming and Schur counts equal the staged run's); busy,
+    idle share and each kernel's launches by name from the trace (those
+    inside graph replays too) from one profiler session over the four in
+    turn (on, staged, fused, scan).  The flag on launches the batched
+    Hamming entry twice and the single-pair entry never; off, the reverse
+    (21 single launches).  Placed before the timing phases, a profiler session over
     whole SfM runs left the first of their sessions empty, so it comes
     after them.  Returns (the precompute timing, the fused timing)."""
     from photogrammetry_tpu_torch.kernels import hamming
@@ -1812,6 +1813,11 @@ def time_modes(dev, seq, k, counters):
     if (on["hamming_pairs"], on["hamming"]) != (2, 0) \
             or (off["hamming_pairs"], off["hamming"]) != (0, 21):
         raise AssertionError(f"launches with the flag on / off: {timing}")
+    for label in ("fused", "scan"):
+        got, staged = timing[label]["launches"], timing["off"]["launches"]
+        if any(got[n] != staged[n] for n in ("hamming", "schur")):
+            raise AssertionError(f"{label} run's wrapper launches {got} "
+                                 f"against the staged run's {staged}")
     if dev.type == "cuda":
         for label in ("fused", "scan"):
             got = timing[label]["profiled"]["trace_launches"]
@@ -1861,8 +1867,8 @@ def drive_fused(dev, seq, k, centers, counters):
     bit-identical to them; the capture's segments one more than its cuts;
     the read-free run a ``DeviceSfmResult`` on the card that bootstraps at
     min(bootstrap_max_defer, F-1), ATE < 0.2 and > 80 landmarks after the
-    export.  Prints each run's wall and wrapper launches (at a capture
-    they count the warm-up's and the capture's, not the replays'), the
+    export.  Prints each run's wall and wrapper launches (the warm-up's
+    and the replays'; a capture, which runs nothing, counts none), the
     capture's segments and cuts, the synchronisations of one replayed
     frame (``set_sync_debug_mode("warn")``) and the warm-up and capture
     ms."""

@@ -56,21 +56,29 @@ def dewarp_frames(frames, coeffs, cache_dir: str, device="cuda",
     (generated on ``device`` when absent), the stacked frames are uploaded
     once and remapped in one launch of the remap kernel (``plain=True``: the
     plain PyTorch remap), and the result stays on the device for
-    ``run_incremental_sfm``.
+    ``run_incremental_sfm``.  Spans (``utils.profiling``):
+    ``dewarp.map_load``, ``dewarp.map_upload``, ``dewarp.frames_upload``
+    and ``dewarp.remap``.
     """
     import torch
 
     from photogrammetry_tpu_torch import resolve_device
     from photogrammetry_tpu_torch.ops.dewarp import make_distortion_applier
     from photogrammetry_tpu_torch.store.cache import DistortionMapCache
+    from photogrammetry_tpu_torch.utils.profiling import span
 
     dev = resolve_device(device)
     h, w = frames.shape[1:3]
-    dmap = DistortionMapCache(cache_dir).get_or_generate(h, w, coeffs,
-                                                         device=dev)
-    apply = make_distortion_applier(dmap, (h, w), device=dev, plain=plain)
-    return apply(torch.as_tensor(frames).to(device=dev,
-                                            dtype=torch.float32))
+    with span("dewarp.map_load"):
+        dmap = DistortionMapCache(cache_dir).get_or_generate(h, w, coeffs,
+                                                             device=dev)
+    with span("dewarp.map_upload"):
+        apply = make_distortion_applier(dmap, (h, w), device=dev,
+                                        plain=plain)
+    with span("dewarp.frames_upload"):
+        stacked = torch.as_tensor(frames).to(device=dev, dtype=torch.float32)
+    with span("dewarp.remap"):
+        return apply(stacked)
 
 
 def loop_links(feats, edges, cfg, device):
@@ -318,6 +326,19 @@ def _mesh_rank(rank: int, argv: list) -> int:
 
 
 def _run(args, ap, device, mesh) -> int:
+    """``_pipeline``; with ``--stats`` under ``utils.profiling``'s
+    recording, so that the stats record gains the run's ``spans``
+    (``span_summary``) and ``counters`` (``read_counters``)."""
+    if not args.stats:
+        return _pipeline(args, ap, device, mesh)
+    from photogrammetry_tpu_torch.utils import profiling
+
+    profiling.clear()
+    with profiling.recording():
+        return _pipeline(args, ap, device, mesh)
+
+
+def _pipeline(args, ap, device, mesh) -> int:
     """The pipeline on ``device``; with ``mesh`` one rank of it, and rank 0
     writes the cloud, the trajectory, the report and the stats."""
     import numpy as np
@@ -333,7 +354,7 @@ def _run(args, ap, device, mesh) -> int:
         absolute_trajectory_error,
     )
     from photogrammetry_tpu_torch.utils.profiling import (
-        StageTimer, append_stats,
+        StageTimer, append_stats, read_counters, span_summary,
     )
 
     writer = mesh is None or mesh.get_rank() == 0
@@ -455,7 +476,8 @@ def _run(args, ap, device, mesh) -> int:
     print(json.dumps(report))
     print(f"wrote {args.cloud}, {args.trajectory}")
     if args.stats:
-        append_stats(args.stats, report)
+        append_stats(args.stats, {**report, "spans": span_summary(),
+                                  "counters": read_counters()})
     return 0
 
 

@@ -22,6 +22,7 @@ import torch
 
 from photogrammetry_tpu_torch.kernels import _build
 from photogrammetry_tpu_torch.ops.brief import brief_bits as brief_bits_plain
+from photogrammetry_tpu_torch.utils import graphs
 
 SOURCE = "photogrammetry_tpu_torch/csrc/brief_pack.cu"
 REPLACES = "photogrammetry_tpu/kernels/brief_pack.py:128"
@@ -140,7 +141,7 @@ def brief_bits(images: torch.Tensor, coords: torch.Tensor,
     out = torch.empty((b, n, p), dtype=torch.uint8, device=images.device)
     if out.numel():
         launch(images, coords, pairs, mask, cos_sin, out)
-        brief_bits.launches += 1
+        graphs.count_launch(brief_bits)
     return out[0] if single else out
 
 

@@ -24,6 +24,7 @@ import torch
 from photogrammetry_tpu_torch.kernels import _build
 from photogrammetry_tpu_torch.ops.fast import \
     fast_score_map as fast_score_map_plain
+from photogrammetry_tpu_torch.utils import graphs
 
 SOURCE = "photogrammetry_tpu_torch/csrc/fast_stencil.cu"
 REPLACES = "photogrammetry_tpu/kernels/fast_stencil.py:143"
@@ -89,7 +90,7 @@ def fast_score_map_batch(images: torch.Tensor,
                       float(threshold),
                       torch.cuda.current_stream(images.device).cuda_stream)
     _build.check(err, "fast_score_launch")
-    fast_score_map_batch.launches += 1
+    graphs.count_launch(fast_score_map_batch)
     return out
 
 

@@ -33,6 +33,7 @@ from photogrammetry_tpu_torch.ops.match import \
     hamming_distance_matrix as hamming_distance_matrix_plain
 from photogrammetry_tpu_torch.ops.match import \
     hamming_distance_matrix_pairs as hamming_distance_matrix_pairs_plain
+from photogrammetry_tpu_torch.utils import graphs
 
 SOURCE = "photogrammetry_tpu_torch/csrc/hamming.cu"
 REPLACES = "photogrammetry_tpu/kernels/hamming.py:45"
@@ -142,7 +143,7 @@ def hamming_distance_matrix(bits1: torch.Tensor, bits2: torch.Tensor,
     if out.numel() == 0:
         return out
     launch(bits1, bits2, p1, p2, out, tile_plan(n1, n2))
-    hamming_distance_matrix.launches += 1
+    graphs.count_launch(hamming_distance_matrix)
     return out
 
 
@@ -191,7 +192,7 @@ def hamming_distance_matrix_pairs(bits: torch.Tensor, masks: torch.Tensor,
                             plan.bm, plan.bn, plan.wm, plan.wn,
                             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "hamming_pairs_launch")
-    hamming_distance_matrix_pairs.launches += 1
+    graphs.count_launch(hamming_distance_matrix_pairs)
     return out
 
 

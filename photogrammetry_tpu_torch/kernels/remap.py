@@ -26,6 +26,7 @@ import torch
 from photogrammetry_tpu_torch.kernels import _build
 from photogrammetry_tpu_torch.ops.dewarp import \
     remap_plain as remap_bilinear_plain
+from photogrammetry_tpu_torch.utils import graphs
 
 SOURCE = "photogrammetry_tpu_torch/csrc/remap.cu"
 REPLACES = "photogrammetry_tpu/kernels/remap.py:245"
@@ -106,7 +107,7 @@ def remap_bilinear(images: torch.Tensor, dist_map: torch.Tensor,
                       int(images.dtype == torch.uint8),
                       torch.cuda.current_stream(images.device).cuda_stream)
     _build.check(err, "remap_launch")
-    remap_bilinear.launches += 1
+    graphs.count_launch(remap_bilinear)
     return out
 
 

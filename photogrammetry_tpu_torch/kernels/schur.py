@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from photogrammetry_tpu_torch.kernels import _build
+from photogrammetry_tpu_torch.utils import graphs
 
 SOURCE = "photogrammetry_tpu_torch/csrc/schur.cu"
 REPLACES = "photogrammetry_tpu/kernels/schur.py:66"
@@ -146,7 +147,7 @@ def schur_products(w_hinv: torch.Tensor, w_cp: torch.Tensor,
                       f, t, plan.slabs, plan.slab_len, part.data_ptr(),
                       s_off.data_ptr(), corr.data_ptr(), stream)
     _build.check(err, "schur_launch")
-    schur_products.launches += 1
+    graphs.count_launch(schur_products)
     return s_off, corr
 
 

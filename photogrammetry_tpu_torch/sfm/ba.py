@@ -23,6 +23,7 @@ from photogrammetry_tpu_torch.core.lie import se3_exp, so3_hat, so3_log
 from photogrammetry_tpu_torch.kernels.schur import (
     schur_products, schur_products_plain,
 )
+from photogrammetry_tpu_torch.utils.profiling import count, span
 
 
 class BAProblem(NamedTuple):
@@ -219,54 +220,60 @@ def bundle_adjust(state: BAState, prob: BAProblem,
     w^2/2 (||log(R R_p^T)||^2 + ||t - t_p||^2) per camera toward
     (prior_rs, prior_ts), included in the LM accept test.  A step is
     accepted when it lowers the cost, is finite and keeps >= 90% of the
-    valid observations.  ``plain=True`` runs the Schur products' plain
+    valid observations; recording (``utils.profiling``) counts the
+    iterations in ``ba.lm_iterations`` and each accept flag in
+    ``ba.lm_accepted``.  ``plain=True`` runs the Schur products' plain
     version on any device (the reference run on the card).
     """
-    f = state.rs.shape[0]
-    dev = state.rs.device
-    if fixed_cameras is None:
-        fixed_cameras = torch.ones((f,), device=dev)
-        fixed_cameras[0] = 0.0
-    w2 = float(prior_weight) ** 2
+    with span("ba.solve", iterations=num_iterations):
+        f = state.rs.shape[0]
+        dev = state.rs.device
+        if fixed_cameras is None:
+            fixed_cameras = torch.ones((f,), device=dev)
+            fixed_cameras[0] = 0.0
+        w2 = float(prior_weight) ** 2
 
-    def prior_terms(st):
-        """(energy, b_prior (F,6)) of the pose-anchor residuals."""
-        v_rot = so3_log(st.rs @ prior_rs.transpose(-1, -2))
-        v_t = st.ts - prior_ts
-        e = 0.5 * w2 * ((v_rot ** 2).sum() + (v_t ** 2).sum())
-        return e, -w2 * torch.cat([v_rot, v_t], dim=-1)
+        def prior_terms(st):
+            """(energy, b_prior (F,6)) of the pose-anchor residuals."""
+            v_rot = so3_log(st.rs @ prior_rs.transpose(-1, -2))
+            v_t = st.ts - prior_ts
+            e = 0.5 * w2 * ((v_rot ** 2).sum() + (v_t ** 2).sum())
+            return e, -w2 * torch.cat([v_rot, v_t], dim=-1)
 
-    _, _, _, cost, nvalid = residuals_and_jacobians(state, prob, huber_delta)
-    if use_pose_prior:
-        cost = cost + prior_terms(state)[0]
-    cost0 = cost
-    lam = torch.full((), init_lambda, dtype=torch.float32, device=dev)
-    h_pr = torch.full((f,), w2, device=dev) if use_pose_prior else None
-    for _ in range(num_iterations):
-        r, j_cam, j_pt, _, _ = residuals_and_jacobians(state, prob,
-                                                       huber_delta)
-        if not optimize_points:
-            j_pt = torch.zeros_like(j_pt)
-        b_pr = prior_terms(state)[1] if use_pose_prior else None
-        delta_c, delta_p = schur_solve(r, j_cam, j_pt, lam, fixed_cameras,
-                                       h_prior=h_pr, b_prior=b_pr,
-                                       plain=plain)
-        cand = apply_step(state, delta_c, delta_p, optimize_points)
-        _, _, _, new_cost, new_nvalid = residuals_and_jacobians(
-            cand, prob, huber_delta)
+        _, _, _, cost, nvalid = residuals_and_jacobians(state, prob,
+                                                        huber_delta)
         if use_pose_prior:
-            new_cost = new_cost + prior_terms(cand)[0]
-        # support guard: validity is state-dependent, so a diverged step
-        # that throws observations behind the cameras lowers the cost for
-        # free; reject any step losing > 10% of the current support
-        support_ok = new_nvalid.to(torch.float32) >= \
-            0.9 * nvalid.to(torch.float32)
-        accept = (new_cost < cost) & torch.isfinite(new_cost) & support_ok
-        state = BAState(*(torch.where(accept, a, b)
-                          for a, b in zip(cand, state)))
-        cost = torch.where(accept, new_cost, cost)
-        nvalid = torch.where(accept, new_nvalid, nvalid)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
-                          torch.clamp(lam * 4.0, max=1e6))
-    return BAResult(state=state, cost=cost, initial_cost=cost0,
-                    iterations=num_iterations)
+            cost = cost + prior_terms(state)[0]
+        cost0 = cost
+        lam = torch.full((), init_lambda, dtype=torch.float32, device=dev)
+        h_pr = torch.full((f,), w2, device=dev) if use_pose_prior else None
+        for _ in range(num_iterations):
+            r, j_cam, j_pt, _, _ = residuals_and_jacobians(state, prob,
+                                                           huber_delta)
+            if not optimize_points:
+                j_pt = torch.zeros_like(j_pt)
+            b_pr = prior_terms(state)[1] if use_pose_prior else None
+            delta_c, delta_p = schur_solve(r, j_cam, j_pt, lam, fixed_cameras,
+                                           h_prior=h_pr, b_prior=b_pr,
+                                           plain=plain)
+            cand = apply_step(state, delta_c, delta_p, optimize_points)
+            _, _, _, new_cost, new_nvalid = residuals_and_jacobians(
+                cand, prob, huber_delta)
+            if use_pose_prior:
+                new_cost = new_cost + prior_terms(cand)[0]
+            # support guard: validity is state-dependent, so a diverged step
+            # that throws observations behind the cameras lowers the cost for
+            # free; reject any step losing > 10% of the current support
+            support_ok = new_nvalid.to(torch.float32) >= \
+                0.9 * nvalid.to(torch.float32)
+            accept = (new_cost < cost) & torch.isfinite(new_cost) & support_ok
+            count("ba.lm_accepted", accept)
+            state = BAState(*(torch.where(accept, a, b)
+                              for a, b in zip(cand, state)))
+            cost = torch.where(accept, new_cost, cost)
+            nvalid = torch.where(accept, new_nvalid, nvalid)
+            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
+                              torch.clamp(lam * 4.0, max=1e6))
+        count("ba.lm_iterations", num_iterations)
+        return BAResult(state=state, cost=cost, initial_cost=cost0,
+                        iterations=num_iterations)

@@ -44,6 +44,7 @@ from photogrammetry_tpu_torch.sfm.epipolar import (
 )
 from photogrammetry_tpu_torch.utils.indexing import take_row
 from photogrammetry_tpu_torch.utils.padding import PaddedPoints
+from photogrammetry_tpu_torch.utils.profiling import span
 
 NMS_IMPLS = {"static": nms_keypoints_static,
              "parallel": nms_keypoints_parallel,
@@ -144,11 +145,13 @@ def describe_bits(gray: torch.Tensor, pts: PaddedPoints, pairs: torch.Tensor,
     → (K, P), or a batch (B, H, W) and (B, K, ...) → (B, K, P), one kernel
     launch either way.  With ``config.oriented_brief`` the pairs are steered
     by each keypoint's intensity-centroid angle (JAX's ``_bits``)."""
-    bits_fn = brief_pack.brief_bits_plain if plain else brief_pack.brief_bits
-    cos_sin = None
-    if config is not None and config.oriented_brief:
-        cos_sin = angles_cos_sin(keypoint_orientations(gray, pts.coords))
-    return bits_fn(gray, pts.coords, pairs, pts.mask, cos_sin)
+    with span("frontend.describe"):
+        bits_fn = (brief_pack.brief_bits_plain if plain
+                   else brief_pack.brief_bits)
+        cos_sin = None
+        if config is not None and config.oriented_brief:
+            cos_sin = angles_cos_sin(keypoint_orientations(gray, pts.coords))
+        return bits_fn(gray, pts.coords, pairs, pts.mask, cos_sin)
 
 
 def refine_xy(gray: torch.Tensor, pts: PaddedPoints,
@@ -163,11 +166,15 @@ def refine_xy(gray: torch.Tensor, pts: PaddedPoints,
 def detect_and_describe(gray: torch.Tensor, pairs: torch.Tensor,
                         config: FrontendConfig,
                         plain: bool = False) -> DescribedFrame:
-    """Grayscale (H, W) float32 image → keypoints + BRIEF bits + xy."""
-    pts = detect_keypoints(gray, config, plain)
-    return DescribedFrame(points=pts,
-                          bits=describe_bits(gray, pts, pairs, config, plain),
-                          xy=refine_xy(gray, pts, config))
+    """Grayscale (H, W) float32 image → keypoints + BRIEF bits + xy.  The
+    refine is detection's last step, timed under ``frontend.detect`` after
+    BRIEF has run."""
+    with span("frontend.detect"):
+        pts = detect_keypoints(gray, config, plain)
+    bits = describe_bits(gray, pts, pairs, config, plain)
+    with span("frontend.detect"):
+        xy = refine_xy(gray, pts, config)
+    return DescribedFrame(points=pts, bits=bits, xy=xy)
 
 
 # JAX's names: its split form is a dispatch workaround with the fused
@@ -181,16 +188,19 @@ def detect_and_describe_batch_split(grays: torch.Tensor, pairs: torch.Tensor,
     """(B, H, W) float32 frames → DescribedFrame with a leading B axis on
     every leaf.  The B score maps come from one launch of the batched FAST
     kernel, NMS runs frame by frame, the B frames' bits come from one
-    launch of the BRIEF kernel, and refine runs frame by frame."""
+    launch of the BRIEF kernel, and refine runs frame by frame (under
+    ``frontend.detect``, as FAST and NMS)."""
     score_fn = (fast_stencil.fast_score_map_plain if plain
                 else fast_stencil.fast_score_map_batch)
-    scores = score_fn(grays, config.detection_threshold)
-    h, w = grays.shape[-2:]
-    pts = PaddedPoints(*map(torch.stack, zip(*(
-        _detect_from_score(score, h, w, config) for score in scores))))
+    with span("frontend.detect"):
+        scores = score_fn(grays, config.detection_threshold)
+        h, w = grays.shape[-2:]
+        pts = PaddedPoints(*map(torch.stack, zip(*(
+            _detect_from_score(score, h, w, config) for score in scores))))
     bits = describe_bits(grays, pts, pairs, config, plain)
-    xy = torch.stack([refine_xy(gray, PaddedPoints(*(x[i] for x in pts)),
-                                config) for i, gray in enumerate(grays)])
+    with span("frontend.detect"):
+        xy = torch.stack([refine_xy(gray, PaddedPoints(*(x[i] for x in pts)),
+                                    config) for i, gray in enumerate(grays)])
     return DescribedFrame(points=pts, bits=bits, xy=xy)
 
 
@@ -311,16 +321,17 @@ def match_pair(f1: DescribedFrame, f2: DescribedFrame,
                config: FrontendConfig, plain: bool = False) -> MatchedPair:
     """Mutual-nearest Hamming matching between two described frames;
     masked keypoints get INT_INF distances on both axes."""
-    dist_fn = (hamming.hamming_distance_matrix_plain if plain
-               else hamming.hamming_distance_matrix)
-    d = dist_fn(f1.bits, f2.bits, f1.points.mask, f2.points.mask)
-    ratio = config.ratio_test if config.ratio_test > 0 else None
-    idx2, dist, valid = mutual_nearest_matches(d, config.hamming_threshold,
-                                               max_ratio=ratio)
-    xy1 = f1.xy
-    xy2 = f2.xy[torch.clamp(idx2, min=0).to(torch.int64)]
-    return MatchedPair(xy1=xy1, xy2=xy2, idx2=idx2, dist=dist, mask=valid,
-                       num=valid.sum().to(torch.int32))
+    with span("frontend.match"):
+        dist_fn = (hamming.hamming_distance_matrix_plain if plain
+                   else hamming.hamming_distance_matrix)
+        d = dist_fn(f1.bits, f2.bits, f1.points.mask, f2.points.mask)
+        ratio = config.ratio_test if config.ratio_test > 0 else None
+        idx2, dist, valid = mutual_nearest_matches(d, config.hamming_threshold,
+                                                   max_ratio=ratio)
+        xy1 = f1.xy
+        xy2 = f2.xy[torch.clamp(idx2, min=0).to(torch.int64)]
+        return MatchedPair(xy1=xy1, xy2=xy2, idx2=idx2, dist=dist, mask=valid,
+                           num=valid.sum().to(torch.int32))
 
 
 class PrecompMatches(NamedTuple):

@@ -62,6 +62,11 @@ fused step runs the windowed BA unsharded, as the JAX package's does.
 ``export=False`` returns a ``DeviceSfmResult`` (poses, costs and the
 bootstrap support still on the device); ``export_sfm_result`` makes the
 one batched transfer.
+
+While ``utils.profiling`` records, a run is the span ``sfm.sequence``
+and its stages the spans under it: ``sfm.frontend``, ``sfm.track``,
+``sfm.bootstrap``, ``sfm.localize``, ``sfm.map``, ``sfm.steady_step``,
+``sfm.host_read``, ``sfm.checkpoint``, ``sfm.final_ba``, ``sfm.export``.
 """
 from __future__ import annotations
 
@@ -100,6 +105,7 @@ from photogrammetry_tpu_torch.utils.graphs import (
     SegmentedGraph, allow_sync, tree_leaves, tree_map,
 )
 from photogrammetry_tpu_torch.utils.indexing import put_row, take_row
+from photogrammetry_tpu_torch.utils.profiling import span
 from photogrammetry_tpu_torch.utils.reductions import nanmedian
 
 
@@ -312,54 +318,55 @@ def _bootstrap_map(generator, table: TrackTable, rs, ts, kmat,
     within 10% of the best, the lowest mean supported reprojection error
     wins (the first on a tie).  Returns (rs, ts, table, support).
     """
-    pair_mask = torch.zeros_like(table.obs_mask)
-    pair_mask[0] = table.obs_mask[0]
-    pair_mask[t] = table.obs_mask[t]
-    both = table.obs_mask[0] & table.obs_mask[t]
-    dev = rs.device
-    fixed = torch.zeros((num_frames,), device=dev)
-    fixed[1:t + 1] = 1.0
+    with span("sfm.bootstrap", t=t):
+        pair_mask = torch.zeros_like(table.obs_mask)
+        pair_mask[0] = table.obs_mask[0]
+        pair_mask[t] = table.obs_mask[t]
+        both = table.obs_mask[0] & table.obs_mask[t]
+        dev = rs.device
+        fixed = torch.zeros((num_frames,), device=dev)
+        fixed[1:t + 1] = 1.0
 
-    cands = []
-    for _ in range(max(1, config.bootstrap_attempts)):
-        # frame t first: (tv.r, tv.t) maps frame-t coords to frame 0, so
-        # frame t's world->cam pose is its inverse
-        tv = two_view_pipeline(generator, table.obs[t], table.obs[0], both,
-                               kmat, threshold=config.ransac_threshold,
-                               num_samples=config.ransac_samples)
-        rs_c = put_row(rs, t, tv.r.T)
-        ts_c = put_row(ts, t, -tv.r.T @ tv.t)
-        cand = _triangulate_tracks_nview(
-            table._replace(obs_mask=pair_mask), rs_c, ts_c, kmat,
-            config.min_depth, config.max_depth)._replace(
-                obs_mask=table.obs_mask)
-        for i in range(1, t):
-            pnp_mask = cand.obs_mask[i] & cand.has_point
-            r_i, t_i = _pnp_init_device(
-                draw_pnp_samples(generator, pnp_mask, config.pnp_samples),
-                cand.points, cand.obs[i], pnp_mask, kmat, rs_c[i], ts_c[i],
-                min_inliers=config.min_pnp_inliers,
-                threshold=config.pnp_threshold)
-            rs_c = put_row(rs_c, i, r_i)
-            ts_c = put_row(ts_c, i, t_i)
-        prob = _ba_problem(cand, kmat)
-        res = bundle_adjust(BAState(rs=rs_c, ts=ts_c, points=cand.points),
-                            prob, num_iterations=20, fixed_cameras=fixed,
-                            plain=plain)
-        pred, z, _ = project(*res.state, kmat)
-        d = pred - cand.obs
-        err = torch.sqrt((d * d).sum(-1))
-        okobs = prob.mask & (err < 2.0) & (z > config.min_depth)
-        support = (okobs.sum(0) >= 2).sum()
-        mean_err = (torch.where(okobs, err, 0.0).sum()
-                    / torch.clamp(okobs.sum(), min=1))
-        cands.append((support, mean_err, *res.state, cand.has_point))
+        cands = []
+        for _ in range(max(1, config.bootstrap_attempts)):
+            # frame t first: (tv.r, tv.t) maps frame-t coords to frame 0, so
+            # frame t's world->cam pose is its inverse
+            tv = two_view_pipeline(generator, table.obs[t], table.obs[0], both,
+                                   kmat, threshold=config.ransac_threshold,
+                                   num_samples=config.ransac_samples)
+            rs_c = put_row(rs, t, tv.r.T)
+            ts_c = put_row(ts, t, -tv.r.T @ tv.t)
+            cand = _triangulate_tracks_nview(
+                table._replace(obs_mask=pair_mask), rs_c, ts_c, kmat,
+                config.min_depth, config.max_depth)._replace(
+                    obs_mask=table.obs_mask)
+            for i in range(1, t):
+                pnp_mask = cand.obs_mask[i] & cand.has_point
+                r_i, t_i = _pnp_init_device(
+                    draw_pnp_samples(generator, pnp_mask, config.pnp_samples),
+                    cand.points, cand.obs[i], pnp_mask, kmat, rs_c[i], ts_c[i],
+                    min_inliers=config.min_pnp_inliers,
+                    threshold=config.pnp_threshold)
+                rs_c = put_row(rs_c, i, r_i)
+                ts_c = put_row(ts_c, i, t_i)
+            prob = _ba_problem(cand, kmat)
+            res = bundle_adjust(BAState(rs=rs_c, ts=ts_c, points=cand.points),
+                                prob, num_iterations=20, fixed_cameras=fixed,
+                                plain=plain)
+            pred, z, _ = project(*res.state, kmat)
+            d = pred - cand.obs
+            err = torch.sqrt((d * d).sum(-1))
+            okobs = prob.mask & (err < 2.0) & (z > config.min_depth)
+            support = (okobs.sum(0) >= 2).sum()
+            mean_err = (torch.where(okobs, err, 0.0).sum()
+                        / torch.clamp(okobs.sum(), min=1))
+            cands.append((support, mean_err, *res.state, cand.has_point))
 
-    sup_a, err_a, rs_a, ts_a, pts_a, hp_a = map(torch.stack, zip(*cands))
-    near = sup_a >= 0.9 * sup_a.max().to(torch.float32)
-    pick = torch.argmin(torch.where(near, err_a, torch.inf))
-    table = table._replace(points=pts_a[pick], has_point=hp_a[pick])
-    return rs_a[pick], ts_a[pick], table, sup_a[pick]
+        sup_a, err_a, rs_a, ts_a, pts_a, hp_a = map(torch.stack, zip(*cands))
+        near = sup_a >= 0.9 * sup_a.max().to(torch.float32)
+        pick = torch.argmin(torch.where(near, err_a, torch.inf))
+        table = table._replace(points=pts_a[pick], has_point=hp_a[pick])
+        return rs_a[pick], ts_a[pick], table, sup_a[pick]
 
 
 class SfmResult:
@@ -404,14 +411,15 @@ def export_sfm_result(dev: DeviceSfmResult) -> SfmResult:
     """The one batched device-to-host transfer that closes a run: poses,
     costs and the bootstrap support (into its frame's info as
     ``bootstrap_support``)."""
-    vals = dev.costs + ([dev.pending_support[1].to(torch.float32)]
-                        if dev.pending_support else [])
-    scalars = torch.stack(vals).cpu() if vals else torch.zeros(0)
-    if dev.pending_support is not None:
-        dev.pending_support[0]["bootstrap_support"] = int(scalars[-1])
-    return SfmResult(dev.rs.cpu().numpy(), dev.ts.cpu().numpy(), dev.table,
-                     [float(c) for c in scalars[:len(dev.costs)]],
-                     dev.frame_info)
+    with span("sfm.export"):
+        vals = dev.costs + ([dev.pending_support[1].to(torch.float32)]
+                            if dev.pending_support else [])
+        scalars = torch.stack(vals).cpu() if vals else torch.zeros(0)
+        if dev.pending_support is not None:
+            dev.pending_support[0]["bootstrap_support"] = int(scalars[-1])
+        return SfmResult(dev.rs.cpu().numpy(), dev.ts.cpu().numpy(), dev.table,
+                         [float(c) for c in scalars[:len(dev.costs)]],
+                         dev.frame_info)
 
 
 def _gate(generator, m, config: SfmConfig):
@@ -430,38 +438,39 @@ def _track_frame(generator, feats, pm, cur, table: TrackTable,
     gates instead.  ``cur``: frame t's features; t a 0-dim device index.
     Returns (table, the keypoint -> track map before it, (matches, gated,
     chained) device scalars or None)."""
-    fc = config.frontend
-    kp_track_prev = table.kp_track
-    if pm is not None:
-        kp2 = (kp_track_prev2 if kp_track_prev2 is not None
-               else torch.full_like(table.kp_track, -1))
-        good = take_row(pm.good1, t)
-        tid = merge_skip_matches(kp_track_prev, kp2, take_row(pm.idx1, t),
-                                 good, take_row(pm.idx2, t),
-                                 take_row(pm.good2, t),
-                                 config.track_capacity)
-        num = take_row(pm.num1, t)
-    else:
-        # rows = the current frame's keypoints; only RANSAC-inlier matches
-        # may chain tracks
-        m = match_pair(cur, frame_features(feats, t - 1), fc, plain=plain)
-        good = _gate(generator, m, config)
-        if kp_track_prev2 is not None:
-            # skip-frame matching: unclaimed keypoints also match t-2
-            m2 = match_pair(cur, frame_features(feats, t - 2), fc,
-                            plain=plain)
-            good2 = _gate(generator, m2, config)
-            tid = merge_skip_matches(kp_track_prev, kp_track_prev2,
-                                     m.idx2, good, m2.idx2, good2,
+    with span("sfm.track", t=t):
+        fc = config.frontend
+        kp_track_prev = table.kp_track
+        if pm is not None:
+            kp2 = (kp_track_prev2 if kp_track_prev2 is not None
+                   else torch.full_like(table.kp_track, -1))
+            good = take_row(pm.good1, t)
+            tid = merge_skip_matches(kp_track_prev, kp2, take_row(pm.idx1, t),
+                                     good, take_row(pm.idx2, t),
+                                     take_row(pm.good2, t),
                                      config.track_capacity)
+            num = take_row(pm.num1, t)
         else:
-            tid = torch.where(
-                good, kp_track_prev[torch.clamp(m.idx2, min=0).long()],
-                -1).to(torch.int32)
-        num = m.num
-    table = extend_tracks_with_tid(table, t, cur.xy, cur.points.mask, tid)
-    diag = ((num, good.sum(), (tid >= 0).sum()) if diagnostics else None)
-    return table, kp_track_prev, diag
+            # rows = the current frame's keypoints; only RANSAC-inlier matches
+            # may chain tracks
+            m = match_pair(cur, frame_features(feats, t - 1), fc, plain=plain)
+            good = _gate(generator, m, config)
+            if kp_track_prev2 is not None:
+                # skip-frame matching: unclaimed keypoints also match t-2
+                m2 = match_pair(cur, frame_features(feats, t - 2), fc,
+                                plain=plain)
+                good2 = _gate(generator, m2, config)
+                tid = merge_skip_matches(kp_track_prev, kp_track_prev2,
+                                         m.idx2, good, m2.idx2, good2,
+                                         config.track_capacity)
+            else:
+                tid = torch.where(
+                    good, kp_track_prev[torch.clamp(m.idx2, min=0).long()],
+                    -1).to(torch.int32)
+            num = m.num
+        table = extend_tracks_with_tid(table, t, cur.xy, cur.points.mask, tid)
+        diag = ((num, good.sum(), (tid >= 0).sum()) if diagnostics else None)
+        return table, kp_track_prev, diag
 
 
 def _localize_frame(generator, cur, table: TrackTable, rs, ts, kmat, t,
@@ -473,31 +482,32 @@ def _localize_frame(generator, cur, table: TrackTable, rs, ts, kmat, t,
     re-association of the keypoints whose chain broke.  Returns (table,
     rs, ts, (the PnP decision's device scalars or None, re-associated
     count or None))."""
-    r_prev, t_prev = take_row(rs, t - 1), take_row(ts, t - 1)
-    pnp_diag = None
-    if config.use_pnp:
-        pnp_mask = take_row(table.obs_mask, t) & table.has_point
-        r_t, t_t, pnp_diag = _pnp_rescue_device(
-            draw_pnp_samples(generator, pnp_mask, config.pnp_samples),
-            table.points, take_row(table.obs, t), pnp_mask, kmat,
-            r_prev, t_prev, min_inliers=config.min_pnp_inliers,
-            rescue_px=config.pnp_rescue_px, threshold=config.pnp_threshold)
-    else:
-        r_t, t_t = r_prev, t_prev
-    rs = put_row(rs, t, r_t)
-    ts = put_row(ts, t, t_t)
-    frames = torch.arange(rs.shape[0], device=rs.device)
-    res = bundle_adjust(BAState(rs=rs, ts=ts, points=table.points),
-                        _ba_problem(table, kmat), num_iterations=10,
-                        fixed_cameras=(frames == t).to(torch.float32),
-                        optimize_points=False, plain=plain)
-    rs, ts = res.state.rs, res.state.ts
-    n_re = None
-    if config.reassociate:
-        table, n_re = reassociate_to_landmarks(
-            table, t, cur.xy, cur.points.mask, take_row(rs, t),
-            take_row(ts, t), kmat, config.reassociate_px)
-    return table, rs, ts, (pnp_diag, n_re)
+    with span("sfm.localize", t=t):
+        r_prev, t_prev = take_row(rs, t - 1), take_row(ts, t - 1)
+        pnp_diag = None
+        if config.use_pnp:
+            pnp_mask = take_row(table.obs_mask, t) & table.has_point
+            r_t, t_t, pnp_diag = _pnp_rescue_device(
+                draw_pnp_samples(generator, pnp_mask, config.pnp_samples),
+                table.points, take_row(table.obs, t), pnp_mask, kmat,
+                r_prev, t_prev, min_inliers=config.min_pnp_inliers,
+                rescue_px=config.pnp_rescue_px, threshold=config.pnp_threshold)
+        else:
+            r_t, t_t = r_prev, t_prev
+        rs = put_row(rs, t, r_t)
+        ts = put_row(ts, t, t_t)
+        frames = torch.arange(rs.shape[0], device=rs.device)
+        res = bundle_adjust(BAState(rs=rs, ts=ts, points=table.points),
+                            _ba_problem(table, kmat), num_iterations=10,
+                            fixed_cameras=(frames == t).to(torch.float32),
+                            optimize_points=False, plain=plain)
+        rs, ts = res.state.rs, res.state.ts
+        n_re = None
+        if config.reassociate:
+            table, n_re = reassociate_to_landmarks(
+                table, t, cur.xy, cur.points.mask, take_row(rs, t),
+                take_row(ts, t), kmat, config.reassociate_px)
+        return table, rs, ts, (pnp_diag, n_re)
 
 
 def _bundle_adjust_map(table: TrackTable, rs, ts, kmat, fixed,
@@ -527,23 +537,25 @@ def _map_frame(table: TrackTable, rs, ts, kmat, t, config: SfmConfig,
     """A posed frame's map update: triangulate new tracks → windowed BA
     (cameras t+1-window..t free, frame 0 the SE(3) gauge) → rescale the
     monocular gauge → prune.  Returns (table, rs, ts, cost)."""
-    if config.nview_triangulation:
-        table = _triangulate_tracks_nview(table, rs, ts, kmat,
-                                          config.min_depth, config.max_depth)
-    else:
-        first, last = first_last_observations(table)
-        table = _triangulate_tracks(table, rs, ts, kmat, first, last,
-                                    config.min_depth, config.max_depth)
-    frames = torch.arange(rs.shape[0], device=rs.device)
-    fixed = ((frames > t - config.window) & (frames <= t)
-             & (frames > 0)).to(torch.float32)
-    rs, ts, table, cost = _bundle_adjust_map(table, rs, ts, kmat, fixed,
-                                             config.ba_iterations, mesh,
-                                             plain)
-    # monocular scale gauge: keep the 0-1 baseline at unit length
-    rs, ts, table = _rescale_gauge(rs, ts, table)
-    table = _prune_observations(table, rs, ts, kmat, config.prune_px)
-    return table, rs, ts, cost
+    with span("sfm.map", t=t):
+        if config.nview_triangulation:
+            table = _triangulate_tracks_nview(table, rs, ts, kmat,
+                                              config.min_depth,
+                                              config.max_depth)
+        else:
+            first, last = first_last_observations(table)
+            table = _triangulate_tracks(table, rs, ts, kmat, first, last,
+                                        config.min_depth, config.max_depth)
+        frames = torch.arange(rs.shape[0], device=rs.device)
+        fixed = ((frames > t - config.window) & (frames <= t)
+                 & (frames > 0)).to(torch.float32)
+        rs, ts, table, cost = _bundle_adjust_map(table, rs, ts, kmat, fixed,
+                                                 config.ba_iterations, mesh,
+                                                 plain)
+        # monocular scale gauge: keep the 0-1 baseline at unit length
+        rs, ts, table = _rescale_gauge(rs, ts, table)
+        table = _prune_observations(table, rs, ts, kmat, config.prune_px)
+        return table, rs, ts, cost
 
 
 def _steady_frame(generator, feats, pm, kmat, carry, t, config: SfmConfig,
@@ -567,20 +579,21 @@ def _steady_frame(generator, feats, pm, kmat, carry, t, config: SfmConfig,
 def _read_diagnostics(info: dict, track_diag, pose_diag=None) -> None:
     """A frame's counters in one host read, into ``info`` under the JAX
     package's keys."""
-    pnp, n_re = pose_diag or (None, None)
-    vals = [*track_diag, *(pnp or ()), *(() if n_re is None else (n_re,))]
-    host = torch.stack([v.to(torch.float64) for v in vals]).tolist()
-    info.update(matches=int(host[0]), gated_matches=int(host[1]),
-                chained=int(host[2]))
-    if pnp is not None:
-        rescued, used, support, prior_med, pnp_inl, pnp_med = host[3:9]
-        info.update(pnp_support=int(support), prior_med_px=prior_med)
-        if rescued:
-            info.update(pnp_inliers=int(pnp_inl), pnp_med_px=pnp_med)
-        if used:
-            info["pose_init"] = "pnp"
-    if n_re is not None:
-        info["reassociated"] = int(host[-1])
+    with span("sfm.host_read"):
+        pnp, n_re = pose_diag or (None, None)
+        vals = [*track_diag, *(pnp or ()), *(() if n_re is None else (n_re,))]
+        host = torch.stack([v.to(torch.float64) for v in vals]).tolist()
+        info.update(matches=int(host[0]), gated_matches=int(host[1]),
+                    chained=int(host[2]))
+        if pnp is not None:
+            rescued, used, support, prior_med, pnp_inl, pnp_med = host[3:9]
+            info.update(pnp_support=int(support), prior_med_px=prior_med)
+            if rescued:
+                info.update(pnp_inliers=int(pnp_inl), pnp_med_px=pnp_med)
+            if used:
+                info["pose_init"] = "pnp"
+        if n_re is not None:
+            info["reassociated"] = int(host[-1])
 
 
 class _SteadyStep:
@@ -615,22 +628,23 @@ class _SteadyStep:
         return carry, cost
 
     def __call__(self, feats, pm, kmat, carry, t):
-        if self.device.type != "cuda":
-            return self._step(feats, pm, kmat, carry, t)
-        if self.graph is None:
-            return self._warm_up_and_capture(feats, pm, kmat, carry, t)
-        run = (feats, pm, kmat)
-        if self._loaded is None or any(
-                a is not b for a, b in zip(self._loaded, run)):
-            for dst, src in zip(tree_leaves(self._inputs[:3]),
-                                tree_leaves(run)):
+        with span("sfm.steady_step", t=t):
+            if self.device.type != "cuda":
+                return self._step(feats, pm, kmat, carry, t)
+            if self.graph is None:
+                return self._warm_up_and_capture(feats, pm, kmat, carry, t)
+            run = (feats, pm, kmat)
+            if self._loaded is None or any(
+                    a is not b for a, b in zip(self._loaded, run)):
+                for dst, src in zip(tree_leaves(self._inputs[:3]),
+                                    tree_leaves(run)):
+                    dst.copy_(src)
+                self._loaded = run
+            for dst, src in zip(tree_leaves(self._inputs[3:]),
+                                tree_leaves((carry, t))):
                 dst.copy_(src)
-            self._loaded = run
-        for dst, src in zip(tree_leaves(self._inputs[3:]),
-                            tree_leaves((carry, t))):
-            dst.copy_(src)
-        self.graph.replay()
-        return tree_map(torch.clone, self._outputs)
+            self.graph.replay()
+            return tree_map(torch.clone, self._outputs)
 
     def _warm_up_and_capture(self, feats, pm, kmat, carry, t):
         dev = self.device
@@ -721,42 +735,45 @@ def _resume_kp_track(table: TrackTable, prev, done: int) -> TrackTable:
 def _sequence_inputs(frames, k, config: SfmConfig, generator, dev, plain):
     """(K, the batched frontend's features, the precomputed matches or
     None, an empty track table, identity poses) for a run on ``dev``."""
-    fc = config.frontend
-    num_frames = len(frames)
-    kmat = torch.as_tensor(np.asarray(k), dtype=torch.float32).to(dev)
-    # a float32 tensor already on ``dev`` (the dewarp stage's output) is
-    # used as it is: no host round trip, no second copy
-    if not isinstance(frames, torch.Tensor):
-        frames = np.asarray(frames)
-    frames_t = torch.as_tensor(frames, dtype=torch.float32,
-                               device=dev).contiguous()
-    octaves = max(1, config.pyramid_octaves)
-    feats = precompute_frontend(frames_t, make_pairs(fc, device=dev), fc,
-                                chunk=config.frontend_chunk, octaves=octaves,
-                                plain=plain)
-    pm = None
-    if config.precompute_matching and num_frames >= 2:
-        pm = precompute_matching(feats, fc, generator, num_frames,
-                                 config.ransac_threshold,
-                                 config.ransac_samples // 2,
-                                 chunk=config.frontend_chunk, plain=plain)
-    table = make_track_table(num_frames, config.track_capacity,
-                             fc.max_keypoints * octaves, device=dev)
-    rs = torch.eye(3, device=dev).repeat(num_frames, 1, 1)
-    ts = torch.zeros((num_frames, 3), device=dev)
-    return kmat, feats, pm, table, rs, ts
+    with span("sfm.frontend"):
+        fc = config.frontend
+        num_frames = len(frames)
+        kmat = torch.as_tensor(np.asarray(k), dtype=torch.float32).to(dev)
+        # a float32 tensor already on ``dev`` (the dewarp stage's output) is
+        # used as it is: no host round trip, no second copy
+        if not isinstance(frames, torch.Tensor):
+            frames = np.asarray(frames)
+        frames_t = torch.as_tensor(frames, dtype=torch.float32,
+                                   device=dev).contiguous()
+        octaves = max(1, config.pyramid_octaves)
+        feats = precompute_frontend(frames_t, make_pairs(fc, device=dev),
+                                    fc, chunk=config.frontend_chunk,
+                                    octaves=octaves, plain=plain)
+        pm = None
+        if config.precompute_matching and num_frames >= 2:
+            pm = precompute_matching(feats, fc, generator, num_frames,
+                                     config.ransac_threshold,
+                                     config.ransac_samples // 2,
+                                     chunk=config.frontend_chunk, plain=plain)
+        table = make_track_table(num_frames, config.track_capacity,
+                                 fc.max_keypoints * octaves, device=dev)
+        rs = torch.eye(3, device=dev).repeat(num_frames, 1, 1)
+        ts = torch.zeros((num_frames, 3), device=dev)
+        return kmat, feats, pm, table, rs, ts
 
 
 def _bootstrap_displacement(table: TrackTable, t: int) -> float:
     """The median displacement (px) of the tracks frame 0 shares with
     frame t, 0 under 16 shared tracks: the adaptive bootstrap trigger's
     one host read."""
-    both = table.obs_mask[0] & table.obs_mask[t]
-    d = table.obs[t] - table.obs[0]
-    return float(torch.where(
-        both.sum() >= 16,
-        nanmedian(torch.where(both, torch.sqrt((d * d).sum(-1)), torch.nan)),
-        0.0))
+    with span("sfm.host_read"):
+        both = table.obs_mask[0] & table.obs_mask[t]
+        d = table.obs[t] - table.obs[0]
+        return float(torch.where(
+            both.sum() >= 16,
+            nanmedian(torch.where(both, torch.sqrt((d * d).sum(-1)),
+                                  torch.nan)),
+            0.0))
 
 
 def _final_ba(table: TrackTable, rs, ts, kmat, config: SfmConfig,
@@ -765,21 +782,23 @@ def _final_ba(table: TrackTable, rs, ts, kmat, config: SfmConfig,
     round after the first re-triangulating every track from the converged
     poses and pruning; each round's cost appended to ``costs``.  Returns
     (table, rs, ts)."""
-    if config.final_ba_iterations <= 0 or rs.shape[0] < 2:
+    with span("sfm.final_ba"):
+        if config.final_ba_iterations <= 0 or rs.shape[0] < 2:
+            return table, rs, ts
+        fixed = torch.ones((rs.shape[0],), device=rs.device)
+        fixed[0] = 0.0
+        for rnd in range(1 + max(0, config.final_refine_rounds)):
+            if rnd > 0:
+                table = _retriangulate_all(table, rs, ts, kmat,
+                                           config.min_depth, config.max_depth)
+                table = _prune_observations(table, rs, ts, kmat,
+                                            config.prune_px)
+            rs, ts, table, cost = _bundle_adjust_map(
+                table, rs, ts, kmat, fixed, config.final_ba_iterations,
+                config.mesh, plain)
+            rs, ts, table = _rescale_gauge(rs, ts, table)
+            costs.append(cost)
         return table, rs, ts
-    fixed = torch.ones((rs.shape[0],), device=rs.device)
-    fixed[0] = 0.0
-    for rnd in range(1 + max(0, config.final_refine_rounds)):
-        if rnd > 0:
-            table = _retriangulate_all(table, rs, ts, kmat, config.min_depth,
-                                       config.max_depth)
-            table = _prune_observations(table, rs, ts, kmat, config.prune_px)
-        rs, ts, table, cost = _bundle_adjust_map(
-            table, rs, ts, kmat, fixed, config.final_ba_iterations,
-            config.mesh, plain)
-        rs, ts, table = _rescale_gauge(rs, ts, table)
-        costs.append(cost)
-    return table, rs, ts
 
 
 def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
@@ -801,6 +820,14 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
     ``read_free=True``, ``collect_diagnostics=False`` and no checkpoint);
     ``export_sfm_result`` finishes it.
     """
+    with span("sfm.sequence", frames=len(frames)):
+        return _run_staged(frames, k, config, seed, checkpoint_path,
+                           checkpoint_every, resume, export, device, plain)
+
+
+def _run_staged(frames, k, config, seed, checkpoint_path, checkpoint_every,
+                resume, export, device, plain):
+    """``run_incremental_sfm``'s body."""
     config = config or SfmConfig()
     if not export and (not config.read_free or config.collect_diagnostics
                        or checkpoint_path):
@@ -836,8 +863,10 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
     def snapshot(t, table, rs, ts, cost):
         if checkpoint_path and (t % checkpoint_every == 0
                                 or t == num_frames - 1):
-            save_checkpoint(checkpoint_path, rs, ts, table, t, metadata={
-                "frame": t, "cost": None if cost is None else float(cost)})
+            with span("sfm.checkpoint"):
+                save_checkpoint(checkpoint_path, rs, ts, table, t, metadata={
+                    "frame": t, "cost": None if cost is None
+                    else float(cost)})
 
     kp_track_prev2 = None   # frame t-2 keypoint -> track id snapshot
     pending_support = None  # device scalar, read at export
@@ -967,6 +996,12 @@ def run_incremental_sfm_fused(frames, k, config: SfmConfig | None = None,
     ``mesh=None``.  ``device`` and ``plain`` as for
     ``run_incremental_sfm``.
     """
+    with span("sfm.sequence", frames=len(frames)):
+        return _run_fused(frames, k, config, seed, device, plain)
+
+
+def _run_fused(frames, k, config, seed, device, plain):
+    """``run_incremental_sfm_fused``'s body."""
     config = config or SfmConfig()
     if config.mesh is not None:
         raise ValueError("run_incremental_sfm_fused is single-device: "

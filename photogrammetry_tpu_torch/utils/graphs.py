@@ -16,6 +16,10 @@ captured, as PyTorch requires of graphs that share a pool.  Random draws
 inside the graphs come from the generators registered with each graph
 (``CUDAGraph.register_generator_state``): a replay advances a generator's
 Philox offset as the eager code would.
+
+A kernel wrapper counts its launches with ``count_launch``.  A capture
+runs nothing, so a launch recorded during one is counted at each replay,
+as an eager call of the function would count it.
 """
 from __future__ import annotations
 
@@ -78,10 +82,21 @@ def sync_point(fn, *args):
         return fn(*args)
 
 
+def count_launch(fn) -> None:
+    """Count one launch of the kernel wrapper ``fn`` in ``fn.launches``: at
+    once, or, inside a capture, at each replay of the graph."""
+    if _ACTIVE is not None:
+        _ACTIVE.launches.append(fn)
+    else:
+        fn.launches += 1
+
+
 class SegmentedGraph:
     """A function captured as a chain of CUDA graphs cut at its
     ``sync_point`` calls.  ``segments`` graphs, ``len(cuts)`` library calls
-    (one synchronisation each) between them."""
+    (one synchronisation each) between them.  ``launches``: the kernel
+    wrappers launched during the capture, one entry a launch, each counted
+    in its ``.launches`` at every replay."""
 
     def __init__(self, device: torch.device, generators=(),
                  stream: torch.cuda.Stream | None = None):
@@ -91,6 +106,7 @@ class SegmentedGraph:
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: list[torch.cuda.CUDAGraph] = []
         self.cuts: list = []        # (fn, input buffers, output buffers)
+        self.launches: list = []    # the wrapper of each captured launch
 
     @property
     def segments(self) -> int:
@@ -137,6 +153,7 @@ class SegmentedGraph:
                     pass    # the capture was invalidated: the first error
                 self.graphs.clear()
                 self.cuts.clear()
+                self.launches.clear()
                 raise
             _ACTIVE = None
             self.graphs[-1].capture_end()
@@ -154,3 +171,5 @@ class SegmentedGraph:
                     new = fn(*args)
                 for o, n in zip(tree_leaves(outs), tree_leaves(new)):
                     o.copy_(n)
+        for fn in self.launches:
+            fn.launches += 1

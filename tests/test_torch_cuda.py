@@ -949,3 +949,61 @@ def test_fused_capture_failure_raises(dev, monkeypatch):
         inc.run_incremental_sfm(scene["frames"], scene["k"], cfg, seed=3,
                                 device=dev)
     assert inc.steady_step(cfg, 8, dev).graph is None
+
+
+def test_graph_replay_counts_its_launches(dev):
+    """A capture, which runs nothing, leaves the kernels' ``.launches`` as
+    they were; each replay adds what the capture recorded (here one Schur
+    and one Hamming launch), as an eager call would."""
+    from photogrammetry_tpu_torch.utils.graphs import (
+        SegmentedGraph, sync_point,
+    )
+
+    args = (*_schur_args(dev, 5, 700), _bits(dev, 64, 256, 1),
+            _bits(dev, 48, 256, 2), *_masks(dev, 64, 48, 3))
+
+    def fn(w_hinv, w_cp, b_p, b1, b2, m1, m2):
+        s_off, corr = schur.schur_products(w_hinv, w_cp, b_p)
+        g = s_off[0, 0] @ s_off[0, 0].T + torch.eye(6, device=dev)
+        vals = sync_point(torch.linalg.eigvalsh, g)
+        return (s_off, corr, vals * 2.0,
+                hamming.hamming_distance_matrix(b1, b2, m1, m2))
+
+    eager = fn(*args)           # builds the kernels
+    counters = (schur.schur_products, hamming.hamming_distance_matrix)
+    before = [c.launches for c in counters]
+    graph = SegmentedGraph(dev)
+    out = graph.capture(fn, *args)
+    assert [c.launches for c in counters] == before
+    assert graph.segments == 2 and len(graph.cuts) == 1
+    for n in (1, 2):
+        graph.replay()
+        assert [c.launches for c in counters] == [b + n for b in before]
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)
+
+
+def test_fused_run_counts_the_staged_launches(dev):
+    """The fused run's wrapper counters read the staged run's Schur and
+    Hamming launches, replays included (the 8-frame pan, a fresh capture
+    and the capture reused)."""
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm,
+    )
+
+    scene = _pan8()
+    counters = (schur.schur_products, hamming.hamming_distance_matrix)
+
+    def launches(cfg):
+        before = [c.launches for c in counters]
+        run_incremental_sfm(scene["frames"], scene["k"], cfg, seed=3,
+                            device=dev)
+        return [c.launches - b for c, b in zip(counters, before)]
+
+    cfg = SfmConfig(collect_diagnostics=False, ba_iterations=13)
+    staged = launches(cfg)
+    assert min(staged) > 0
+    fused = SfmConfig(collect_diagnostics=False, ba_iterations=13,
+                      fused_steady_steps=True)
+    assert launches(fused) == staged == launches(fused)

@@ -313,7 +313,15 @@ def test_run_sfm_cli_synthetic(tmp_path, capsys):
     header = cloud.read_text().splitlines()
     assert f"element vertex {report['landmarks']}" in header
     assert len(json.loads(traj.read_text())["centers"]) == 8
-    assert len(json.loads(stats.read_text())) == 1
+    records = json.loads(stats.read_text())
+    assert len(records) == 1
+    # the run recorded under --stats: three sequences, their stages
+    spans, counters = records[0]["spans"], records[0]["counters"]
+    assert spans["sfm.sequence"]["calls"] == 3
+    for name in ("sfm.frontend", "sfm.track", "sfm.bootstrap",
+                 "sfm.localize", "sfm.map", "sfm.final_ba", "ba.solve"):
+        assert spans[name]["calls"] >= 1 and spans[name]["total_s"] > 0
+    assert 0 < counters["ba.lm_accepted"] <= counters["ba.lm_iterations"]
 
 
 def test_run_sfm_cli_frames_dir_and_unported_flags(tmp_path, pan):
