@@ -11,10 +11,13 @@ kernel ``kernels/schur.py`` (on CUDA tensors) and is solved with
 twists; Huber IRLS weights are folded into r and J.
 
 The LM loop runs a fixed number of iterations; accept/reject is a
-``torch.where`` on the device, so a BA reads nothing back to the host.
+``torch.where`` on the device, so a BA reads nothing back to the host, and
+on CUDA a repeated call replays the loop as one cached CUDA graph.
 """
 from __future__ import annotations
 
+import functools
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -23,7 +26,11 @@ from photogrammetry_tpu_torch.core.lie import se3_exp, so3_hat, so3_log
 from photogrammetry_tpu_torch.kernels.schur import (
     schur_products, schur_products_plain,
 )
-from photogrammetry_tpu_torch.utils.profiling import count, span
+from photogrammetry_tpu_torch.utils import graphs
+from photogrammetry_tpu_torch.utils.graphs import (
+    SegmentedGraph, allow_sync, tree_leaves, tree_map,
+)
+from photogrammetry_tpu_torch.utils.profiling import count, is_recording, span
 
 
 class BAProblem(NamedTuple):
@@ -201,6 +208,180 @@ def apply_step(state: BAState, delta_c, delta_p,
     return BAState(rs=rs, ts=ts, points=points)
 
 
+def _lm_loop(state: BAState, prob: BAProblem, fixed_cameras, prior_rs,
+             prior_ts, *, num_iterations, huber_delta, init_lambda,
+             optimize_points, use_pose_prior, prior_weight, plain,
+             tally=False):
+    """``bundle_adjust``'s LM loop: (state, cost, initial cost, accepted),
+    ``accepted`` the number of accepted steps (0-dim) where ``tally``, else
+    None.  Each accept flag also goes to the counter ``ba.lm_accepted``,
+    which records nothing inside a capture."""
+    f = state.rs.shape[0]
+    dev = state.rs.device
+    if fixed_cameras is None:
+        fixed_cameras = torch.ones((f,), device=dev)
+        fixed_cameras[0] = 0.0
+    w2 = float(prior_weight) ** 2
+
+    def prior_terms(st):
+        """(energy, b_prior (F,6)) of the pose-anchor residuals."""
+        v_rot = so3_log(st.rs @ prior_rs.transpose(-1, -2))
+        v_t = st.ts - prior_ts
+        e = 0.5 * w2 * ((v_rot ** 2).sum() + (v_t ** 2).sum())
+        return e, -w2 * torch.cat([v_rot, v_t], dim=-1)
+
+    _, _, _, cost, nvalid = residuals_and_jacobians(state, prob, huber_delta)
+    if use_pose_prior:
+        cost = cost + prior_terms(state)[0]
+    cost0 = cost
+    lam = torch.full((), init_lambda, dtype=torch.float32, device=dev)
+    h_pr = torch.full((f,), w2, device=dev) if use_pose_prior else None
+    accepts = []
+    for _ in range(num_iterations):
+        r, j_cam, j_pt, _, _ = residuals_and_jacobians(state, prob,
+                                                       huber_delta)
+        if not optimize_points:
+            j_pt = torch.zeros_like(j_pt)
+        b_pr = prior_terms(state)[1] if use_pose_prior else None
+        delta_c, delta_p = schur_solve(r, j_cam, j_pt, lam, fixed_cameras,
+                                       h_prior=h_pr, b_prior=b_pr,
+                                       plain=plain)
+        cand = apply_step(state, delta_c, delta_p, optimize_points)
+        _, _, _, new_cost, new_nvalid = residuals_and_jacobians(
+            cand, prob, huber_delta)
+        if use_pose_prior:
+            new_cost = new_cost + prior_terms(cand)[0]
+        # support guard: validity is state-dependent, so a diverged step
+        # that throws observations behind the cameras lowers the cost for
+        # free; reject any step losing > 10% of the current support
+        support_ok = new_nvalid.to(torch.float32) >= \
+            0.9 * nvalid.to(torch.float32)
+        accept = (new_cost < cost) & torch.isfinite(new_cost) & support_ok
+        count("ba.lm_accepted", accept)
+        if tally:
+            accepts.append(accept)
+        state = BAState(*(torch.where(accept, a, b)
+                          for a, b in zip(cand, state)))
+        cost = torch.where(accept, new_cost, cost)
+        nvalid = torch.where(accept, new_nvalid, nvalid)
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
+                          torch.clamp(lam * 4.0, max=1e6))
+    accepted = None
+    if tally:
+        accepted = (torch.stack(accepts).sum() if accepts else
+                    torch.zeros((), dtype=torch.int64, device=dev))
+    return state, cost, cost0, accepted
+
+
+# -- the LM loop as a cached CUDA graph --------------------------------------
+#
+# A CUDA solve whose key was seen before replays a capture of ``_lm_loop``:
+# the same kernels on the same values, launched as one graph.  The key holds
+# all that the capture bakes in: each input tensor's shape, strides and
+# dtype (None where not given), the device and the Python arguments.  A key
+# is captured on its second call, so one-off shapes pay no capture.  At most
+# MAX_GRAPHS captures are kept: a key that finds the cache full runs eagerly
+# and evicts the least recently replayed capture, so that its next call
+# captures.  The keys seen once are remembered up to MAX_SEEN.
+
+MAX_GRAPHS = 8
+MAX_SEEN = 64
+_GRAPHS: OrderedDict = OrderedDict()    # key -> _LoopGraph
+_SEEN: OrderedDict = OrderedDict()      # key -> None
+# device -> the one capture stream: a library workspace allocated for a
+# stream is kept for the process, so captures share one
+_STREAMS: dict = {}
+
+
+def _graph_key(args, opts) -> tuple:
+    """The cache key of ``_lm_loop(*args, **opts)``."""
+    layout = tuple(None if x is None else (tuple(x.shape), x.stride(),
+                                           x.dtype)
+                   for x in (*args[0], *args[1], *args[2:]))
+    return (args[0].rs.device, layout, tuple(sorted(opts.items())))
+
+
+class _LoopGraph:
+    """One captured LM loop: static input buffers (``empty_like`` the
+    caller's tensors), the ``SegmentedGraph`` (one segment: the loop reads
+    nothing back) and the buffers its replays write."""
+
+    def __init__(self, args, opts, stream):
+        dev = args[0].rs.device
+        self.inputs = tree_map(torch.empty_like, args)
+        self._load(args)
+        self.graph = SegmentedGraph(dev, stream=stream)
+        self.outputs = self.graph.capture(
+            functools.partial(_lm_loop, tally=True, **opts), *self.inputs)
+        self.last_stream = torch.cuda.current_stream(dev)
+
+    def _load(self, args):
+        for dst, src in zip(tree_leaves(self.inputs), tree_leaves(args)):
+            dst.copy_(src)
+
+    def __call__(self, args):
+        """Copy ``args`` in, replay, and return copies of (state, cost,
+        initial cost): the next replay overwrites the buffers.  Recording,
+        the accepted steps go to ``ba.lm_accepted`` as a copy too.  A
+        call on another stream than the last (the fused step's warm-up
+        runs on its own) waits for the last."""
+        cur = torch.cuda.current_stream(self.last_stream.device)
+        if cur != self.last_stream:
+            cur.wait_stream(self.last_stream)
+            self.last_stream = cur
+        self._load(args)
+        self.graph.replay()
+        state, cost, cost0, accepted = self.outputs
+        if is_recording():
+            count("ba.lm_accepted", accepted.clone())
+        return tree_map(torch.clone, (state, cost, cost0))
+
+
+def _capture(key, args, opts):
+    """Capture the loop into the cache, on the device's capture stream,
+    and replay it for this call.  The key's first call ran eagerly: the
+    library handles the capture needs exist."""
+    dev = args[0].rs.device
+    stream = _STREAMS.get(dev)
+    if stream is None:
+        stream = _STREAMS[dev] = torch.cuda.Stream(dev)
+    entry = _GRAPHS[key] = _LoopGraph(args, opts, stream)
+    return entry(args)
+
+
+def _solve(args, opts):
+    """(state, cost, initial cost) of the LM loop: eager, captured or
+    replayed, as the device, the capture state and the cache decide."""
+    if not args[0].rs.is_cuda:
+        return _lm_loop(*args, **opts)[:3]
+    if graphs._ACTIVE is not None or torch.cuda.is_current_stream_capturing():
+        # recorded into the enclosing capture
+        count("ba.eager_solves", 1)
+        return _lm_loop(*args, **opts)[:3]
+    key = _graph_key(args, opts)
+    entry = _GRAPHS.get(key)
+    if entry is not None:
+        _GRAPHS.move_to_end(key)
+        count("ba.graph_replays", 1)
+        return entry(args)
+    if key in _SEEN and len(_GRAPHS) < MAX_GRAPHS:
+        count("ba.graph_captures", 1)
+        count("ba.graph_replays", 1)
+        return _capture(key, args, opts)
+    count("ba.eager_solves", 1)
+    if key not in _SEEN:
+        _SEEN[key] = None
+        if len(_SEEN) > MAX_SEEN:
+            _SEEN.popitem(last=False)
+    elif _GRAPHS:
+        # the cache is full: the evicted capture's last replay may still
+        # be queued
+        with allow_sync():
+            torch.cuda.current_stream(args[0].rs.device).synchronize()
+        _GRAPHS.popitem(last=False)
+    return _lm_loop(*args, **opts)[:3]
+
+
 def bundle_adjust(state: BAState, prob: BAProblem,
                   num_iterations: int = 20,
                   huber_delta: float = 3.0,
@@ -224,56 +405,25 @@ def bundle_adjust(state: BAState, prob: BAProblem,
     iterations in ``ba.lm_iterations`` and each accept flag in
     ``ba.lm_accepted``.  ``plain=True`` runs the Schur products' plain
     version on any device (the reference run on the card).
+
+    On CUDA a call whose arguments repeat an earlier call's shapes and
+    options replays a cached CUDA graph of the loop (the same kernels and
+    bits; the cache above ``_solve``), captured on the key's second call,
+    and runs eagerly on its first call, on the call that finds the cache
+    full and inside another capture.  Recording counts
+    ``ba.graph_replays`` (a capture's own replay included),
+    ``ba.graph_captures`` and ``ba.eager_solves`` (CUDA calls run
+    eagerly).
     """
     with span("ba.solve", iterations=num_iterations):
-        f = state.rs.shape[0]
-        dev = state.rs.device
-        if fixed_cameras is None:
-            fixed_cameras = torch.ones((f,), device=dev)
-            fixed_cameras[0] = 0.0
-        w2 = float(prior_weight) ** 2
-
-        def prior_terms(st):
-            """(energy, b_prior (F,6)) of the pose-anchor residuals."""
-            v_rot = so3_log(st.rs @ prior_rs.transpose(-1, -2))
-            v_t = st.ts - prior_ts
-            e = 0.5 * w2 * ((v_rot ** 2).sum() + (v_t ** 2).sum())
-            return e, -w2 * torch.cat([v_rot, v_t], dim=-1)
-
-        _, _, _, cost, nvalid = residuals_and_jacobians(state, prob,
-                                                        huber_delta)
-        if use_pose_prior:
-            cost = cost + prior_terms(state)[0]
-        cost0 = cost
-        lam = torch.full((), init_lambda, dtype=torch.float32, device=dev)
-        h_pr = torch.full((f,), w2, device=dev) if use_pose_prior else None
-        for _ in range(num_iterations):
-            r, j_cam, j_pt, _, _ = residuals_and_jacobians(state, prob,
-                                                           huber_delta)
-            if not optimize_points:
-                j_pt = torch.zeros_like(j_pt)
-            b_pr = prior_terms(state)[1] if use_pose_prior else None
-            delta_c, delta_p = schur_solve(r, j_cam, j_pt, lam, fixed_cameras,
-                                           h_prior=h_pr, b_prior=b_pr,
-                                           plain=plain)
-            cand = apply_step(state, delta_c, delta_p, optimize_points)
-            _, _, _, new_cost, new_nvalid = residuals_and_jacobians(
-                cand, prob, huber_delta)
-            if use_pose_prior:
-                new_cost = new_cost + prior_terms(cand)[0]
-            # support guard: validity is state-dependent, so a diverged step
-            # that throws observations behind the cameras lowers the cost for
-            # free; reject any step losing > 10% of the current support
-            support_ok = new_nvalid.to(torch.float32) >= \
-                0.9 * nvalid.to(torch.float32)
-            accept = (new_cost < cost) & torch.isfinite(new_cost) & support_ok
-            count("ba.lm_accepted", accept)
-            state = BAState(*(torch.where(accept, a, b)
-                              for a, b in zip(cand, state)))
-            cost = torch.where(accept, new_cost, cost)
-            nvalid = torch.where(accept, new_nvalid, nvalid)
-            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
-                              torch.clamp(lam * 4.0, max=1e6))
+        args = (state, prob, fixed_cameras, prior_rs, prior_ts)
+        opts = dict(num_iterations=int(num_iterations),
+                    huber_delta=float(huber_delta),
+                    init_lambda=float(init_lambda),
+                    optimize_points=bool(optimize_points),
+                    use_pose_prior=bool(use_pose_prior),
+                    prior_weight=float(prior_weight), plain=bool(plain))
+        state, cost, cost0 = _solve(args, opts)
         count("ba.lm_iterations", num_iterations)
         return BAResult(state=state, cost=cost, initial_cost=cost0,
                         iterations=num_iterations)

@@ -172,12 +172,17 @@ def recording():
         _recording -= 1
 
 
+def is_recording() -> bool:
+    """Whether spans and counters record now: recording on and no graph
+    capture under way."""
+    return bool(_recording or _torch_profiler._is_profiler_enabled) \
+        and _graphs._ACTIVE is None
+
+
 def span(name: str, **attrs):
     """A context recording ``name`` over its body while recording is on;
     off (or inside a graph capture), the shared no-op context."""
-    if not (_recording or _torch_profiler._is_profiler_enabled):
-        return _OFF
-    if _graphs._ACTIVE is not None:
+    if not is_recording():
         return _OFF
     stack = getattr(_local, "stack", None)
     if stack is None:
@@ -200,9 +205,7 @@ def _add(name: str, value) -> None:
 def count(name: str, value) -> None:
     """Add ``value`` to counter ``name`` while recording is on: a host
     number, or a 0-dim tensor held by reference (no launch, no read)."""
-    if not (_recording or _torch_profiler._is_profiler_enabled):
-        return
-    if _graphs._ACTIVE is None:
+    if is_recording():
         _add(name, value)
 
 

@@ -155,3 +155,99 @@ def test_pose_prior_bundle_adjust_matches_jax(problem):
                 prior_rs=torch.tensor(rs_gt, dtype=torch.float32),
                 prior_ts=torch.tensor(ts_gt, dtype=torch.float32),
                 prior_weight=3.0)
+
+
+# ------------------------------ the CUDA-graph cache, seen from the CPU
+
+
+def test_bundle_adjust_on_the_cpu_never_captures(problem):
+    """CPU tensors take the eager loop on every call: nothing is seen,
+    captured or replayed, the new counters stay absent, and the result is
+    the loop's own, the same bits on a repeated call."""
+    from photogrammetry_tpu_torch.utils import profiling
+
+    st, pr = _port(problem)
+    seen, cached = dict(ba._SEEN), dict(ba._GRAPHS)
+    profiling.clear()
+    with profiling.recording():
+        got = [ba.bundle_adjust(st, pr, num_iterations=6) for _ in range(3)]
+    counters = profiling.read_counters()
+    profiling.clear()
+    assert (ba._SEEN, ba._GRAPHS) == (seen, cached)
+    assert counters["ba.lm_iterations"] == 18
+    assert not {"ba.graph_replays", "ba.graph_captures",
+                "ba.eager_solves"} & set(counters)
+    ref, cost, cost0, accepted = ba._lm_loop(
+        st, pr, None, None, None, num_iterations=6, huber_delta=3.0,
+        init_lambda=1e-3, optimize_points=True, use_pose_prior=False,
+        prior_weight=0.0, plain=False, tally=True)
+    assert counters["ba.lm_accepted"] == 3 * int(accepted) > 0
+    for res in got:
+        assert all(torch.equal(a, b) for a, b in zip(res.state, ref))
+        assert torch.equal(res.cost, cost)
+        assert torch.equal(res.initial_cost, cost0)
+        assert res.iterations == 6
+
+
+def _small_problem(f=4, t=60, device="cpu", dtype=torch.float32):
+    z = torch.zeros((), dtype=dtype, device=device)
+    state = ba.BAState(rs=z.new_zeros(f, 3, 3), ts=z.new_zeros(f, 3),
+                       points=z.new_zeros(t, 3))
+    prob = ba.BAProblem(obs=z.new_zeros(f, t, 2),
+                        mask=torch.zeros(f, t, dtype=torch.bool,
+                                         device=device),
+                        k=z.new_zeros(3, 3))
+    return state, prob
+
+
+def _key(monkeypatch, state, prob, **kw):
+    """The cache key that ``bundle_adjust(state, prob, **kw)`` computes
+    (the solve itself stubbed out)."""
+    keys = []
+
+    def solve(args, opts):
+        keys.append(ba._graph_key(args, opts))
+        return args[0], args[1].k[0, 0], args[1].k[0, 0]
+
+    monkeypatch.setattr(ba, "_solve", solve)
+    ba.bundle_adjust(state, prob, **kw)
+    return keys[0]
+
+
+_BASE = dict(num_iterations=20, fixed_cameras=torch.ones(4))
+_CHANGES = {
+    "device": ({}, dict(device="meta")),
+    "dtype": ({}, dict(dtype=torch.float64)),
+    "frames": ({}, dict(f=5)),
+    "tracks": ({}, dict(t=61)),
+    "num_iterations": (dict(num_iterations=21), {}),
+    "huber_delta": (dict(huber_delta=2.0), {}),
+    "init_lambda": (dict(init_lambda=1e-2), {}),
+    "optimize_points": (dict(optimize_points=False), {}),
+    "use_pose_prior": (dict(use_pose_prior=True), {}),
+    "prior_weight": (dict(prior_weight=1.0), {}),
+    "plain": (dict(plain=True), {}),
+    "fixed_cameras": (dict(fixed_cameras=None), {}),
+    "prior_rs": (dict(prior_rs=torch.zeros(4, 3, 3)), {}),
+    "prior_ts": (dict(prior_ts=torch.zeros(4, 3)), {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CHANGES))
+def test_graph_key_separates_what_the_capture_bakes_in(monkeypatch, name):
+    """Each argument that the captured loop bakes in, changed alone, gives
+    another key; the same call gives the same key, and a number given as
+    an int the same key as the float it is."""
+    kw, shape = _CHANGES[name]
+    base = _key(monkeypatch, *_small_problem(), **_BASE)
+    assert _key(monkeypatch, *_small_problem(), **_BASE) == base
+    assert _key(monkeypatch, *_small_problem(), **_BASE,
+                huber_delta=3) == base
+    changed = dict(_BASE, **kw)
+    if "f" in shape:
+        changed["fixed_cameras"] = torch.ones(shape["f"])
+    if "device" in shape:
+        changed["fixed_cameras"] = torch.ones(4, device="meta")
+    if "dtype" in shape:
+        changed["fixed_cameras"] = torch.ones(4, dtype=torch.float64)
+    assert _key(monkeypatch, *_small_problem(**shape), **changed) != base

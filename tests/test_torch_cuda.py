@@ -818,6 +818,226 @@ def test_distributed_ba_world_of_one_on_the_card(dev):
         dist.destroy_process_group()
 
 
+# ------------------------------ bundle adjustment as a cached CUDA graph
+
+
+def _ba_1080(dev, seed, frames=12, tracks=1024):
+    """A BA problem of the SfM path's shape on the 1080p star scene (focal
+    1560, the 12-frame pan): the star's corners and a dot field drawn from
+    ``seed`` in ``tracks`` slots, each seen over a run of frames with
+    0.5 px noise (slots without a point never seen), the poses and points
+    perturbed as the incremental loop hands them over."""
+    from photogrammetry_tpu_torch.core.lie import se3_exp
+    from photogrammetry_tpu_torch.sfm.ba import BAProblem, BAState, project
+    from photogrammetry_tpu_torch.synth.star_scene import (
+        StarSceneConfig, dot_points_3d, intrinsics, pan_trajectory,
+        star_points_3d,
+    )
+
+    cfg = StarSceneConfig(image_size=(1080, 1920), focal=1560.0,
+                          num_frames=frames, num_dots=1200, dot_seed=seed)
+    pts = np.concatenate([star_points_3d(cfg), dot_points_3d(cfg)[0]])
+    pts = pts[:tracks]
+    rng = np.random.default_rng(seed)
+    rs, ts, _ = pan_trajectory(cfg)
+    t32 = dict(dtype=torch.float32, device=dev)
+    k = torch.tensor(intrinsics(cfg), **t32)
+    rs, ts = torch.tensor(rs, **t32), torch.tensor(ts, **t32)
+    p = torch.zeros((tracks, 3), **t32)
+    p[:len(pts)] = torch.tensor(pts, **t32)
+    obs = project(rs, ts, p, k)[0] + torch.tensor(
+        rng.normal(0, 0.5, (frames, tracks, 2)), **t32)
+    first = rng.integers(0, frames - 1, tracks)
+    last = first + rng.integers(2, frames + 1, tracks)
+    f = np.arange(frames)[:, None]
+    mask = (f >= first) & (f < last)
+    mask[:, len(pts):] = False
+    twist = torch.tensor(rng.normal(0, 0.01, (frames, 6)), **t32)
+    twist[0] = 0
+    dr, dt = se3_exp(twist)
+    state = BAState(rs=dr @ rs, ts=ts + dt, points=p + torch.tensor(
+        rng.normal(0, 0.05, (tracks, 3)), **t32))
+    return state, BAProblem(obs=obs, mask=torch.tensor(mask, device=dev),
+                            k=k)
+
+
+# the three calls of a 12-frame SfM sequence: the bootstrap (frames 1-3
+# free, 20 iterations), localize (frame 6 alone, motion only, 10) and the
+# windowed and final BA (frames 1-8 free, 30)
+_SFM_KEYS = {
+    "bootstrap": (dict(num_iterations=20), lambda f: (f >= 1) & (f <= 3)),
+    "localize": (dict(num_iterations=10, optimize_points=False),
+                 lambda f: f == 6),
+    "map": (dict(num_iterations=30), lambda f: (f >= 1) & (f <= 8)),
+}
+
+
+def _ba_case(dev, key, seed):
+    kw, free = _SFM_KEYS[key]
+    state, prob = _ba_1080(dev, seed)
+    fixed = free(torch.arange(12, device=dev)).to(torch.float32)
+    return state, prob, dict(kw, fixed_cameras=fixed)
+
+
+def _eager(state, prob, kw):
+    """The eager LM loop of ``bundle_adjust(state, prob, **kw)``:
+    (state, cost, initial cost, accepted steps)."""
+    from photogrammetry_tpu_torch.sfm import ba
+
+    opts = dict(num_iterations=10, huber_delta=3.0, init_lambda=1e-3,
+                optimize_points=True, use_pose_prior=False, prior_weight=0.0,
+                plain=False)
+    opts.update((k, v) for k, v in kw.items() if k in opts)
+    return ba._lm_loop(state, prob, kw.get("fixed_cameras"), None, None,
+                       tally=True, **opts)
+
+
+def _same_ba(res, ref) -> bool:
+    return (all(torch.equal(a, b) for a, b in zip(res.state, ref[0]))
+            and torch.equal(res.cost, ref[1])
+            and torch.equal(res.initial_cost, ref[2]))
+
+
+@pytest.fixture
+def ba_cache():
+    """``sfm/ba.py``'s graph cache emptied around the test."""
+    from photogrammetry_tpu_torch.sfm import ba
+
+    torch.cuda.synchronize()
+    ba._GRAPHS.clear()
+    ba._SEEN.clear()
+    yield ba
+    torch.cuda.synchronize()
+    ba._GRAPHS.clear()
+    ba._SEEN.clear()
+
+
+@pytest.mark.parametrize("key", sorted(_SFM_KEYS))
+def test_ba_graph_replay_bit_identical(dev, ba_cache, key):
+    """Each SfM key: the first call eager, the second captures and
+    replays, the next replay; each replay of four problems of the key
+    (seeds 0-3, in turn, one capture) gives that problem's eager bits in
+    the state, the cost and the initial cost and counts its eager accepted
+    steps.  A result stays as it was through the later replays: inputs are
+    refreshed and outputs not aliased."""
+    from photogrammetry_tpu_torch.utils import profiling
+
+    ba = ba_cache
+    cases = [_ba_case(dev, key, seed) for seed in range(4)]
+    refs = [_eager(*c) for c in cases]
+    assert all(int(r[3]) > 0 for r in refs)
+    assert all(_same_ba(ba.bundle_adjust(cases[0][0], cases[0][1],
+                                         **cases[0][2]), refs[0])
+               for _ in range(2))
+    assert len(ba._GRAPHS) == 1
+    profiling.clear()
+    with profiling.recording():
+        got = [ba.bundle_adjust(st, pr, **kw) for st, pr, kw in cases]
+    counters = profiling.read_counters()
+    profiling.clear()
+    for res, ref in zip(got, refs):
+        assert _same_ba(res, ref)
+    assert counters["ba.graph_replays"] == 4
+    assert "ba.eager_solves" not in counters
+    assert counters["ba.lm_accepted"] == sum(int(r[3]) for r in refs)
+    assert not torch.equal(got[0].state.points, got[1].state.points)
+
+
+def test_ba_graph_replay_syncs_nothing(dev, ba_cache):
+    """A replay (copy-in, graph, copies out; recording on and off) under
+    ``set_sync_debug_mode("error")``."""
+    from photogrammetry_tpu_torch.utils import profiling
+
+    st, pr, kw = _ba_case(dev, "map", 0)
+    ref = _eager(st, pr, kw)
+    for _ in range(2):
+        ba_cache.bundle_adjust(st, pr, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = ba_cache.bundle_adjust(st, pr, **kw)
+        with profiling.recording():
+            again = ba_cache.bundle_adjust(st, pr, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        profiling.clear()
+    assert _same_ba(res, ref) and _same_ba(again, ref)
+
+
+def test_ba_inside_a_capture_runs_eagerly(dev, ba_cache):
+    """Inside a ``SegmentedGraph`` capture a BA whose key is cached is
+    recorded into that capture, not replayed: the capture holds (one
+    segment) and its replay gives the eager bits."""
+    from photogrammetry_tpu_torch.utils.graphs import SegmentedGraph
+
+    st, pr, kw = _ba_case(dev, "localize", 1)
+    ref = _eager(st, pr, kw)
+    for _ in range(2):
+        ba_cache.bundle_adjust(st, pr, **kw)
+    graph = SegmentedGraph(dev)
+    out = graph.capture(lambda s, p: ba_cache.bundle_adjust(s, p, **kw),
+                        st, pr)
+    assert graph.segments == 1 and len(ba_cache._GRAPHS) == 1
+    graph.replay()
+    assert _same_ba(out, ref)
+
+
+def test_ba_graph_cache_bounded(dev, ba_cache, monkeypatch):
+    """A key that finds the cache full runs eagerly and evicts the least
+    recently replayed capture; its next call captures."""
+    monkeypatch.setattr(ba_cache, "MAX_GRAPHS", 2)
+    st, pr, kw = _ba_case(dev, "localize", 2)
+
+    def cached():
+        return [dict(key[2])["num_iterations"] for key in ba_cache._GRAPHS]
+
+    def check(n, ref):
+        res = ba_cache.bundle_adjust(st, pr, **dict(kw, num_iterations=n))
+        assert _same_ba(res, ref)
+
+    refs = {n: _eager(st, pr, dict(kw, num_iterations=n)) for n in (4, 5, 6)}
+    for n in (4, 5):
+        check(n, refs[n])
+        check(n, refs[n])
+    assert cached() == [4, 5]
+    check(4, refs[4])               # a replay: 4 is now the newest
+    check(6, refs[6])               # seen
+    check(6, refs[6])               # the cache full: eager, 5 evicted
+    assert cached() == [4]
+    check(6, refs[6])               # captured
+    assert cached() == [4, 6]
+    check(6, refs[6])               # replayed
+
+
+def test_staged_sfm_with_ba_graphs_equals_eager(dev, ba_cache, monkeypatch):
+    """The staged SfM on the 8-frame pan: a first run (each key eager,
+    then captured), a second (every BA a replay) and a run with no cache
+    (every BA eager) give the same bits."""
+    from photogrammetry_tpu_torch.sfm.incremental import (
+        SfmConfig, run_incremental_sfm,
+    )
+    from photogrammetry_tpu_torch.utils import profiling
+
+    scene = _pan8()
+    cfg = SfmConfig(collect_diagnostics=False, ba_iterations=17)
+
+    def run():
+        return run_incremental_sfm(scene["frames"], scene["k"], cfg, seed=3,
+                                   device=dev)
+
+    first = run()
+    with profiling.recording():
+        second = run()
+    counters = profiling.read_counters()
+    profiling.clear()
+    assert counters["ba.graph_replays"] > 0
+    assert "ba.eager_solves" not in counters
+    monkeypatch.setattr(ba_cache, "MAX_GRAPHS", 0)
+    ba_cache._GRAPHS.clear()
+    eager = run()
+    assert _same_run(first, eager) and _same_run(second, eager)
+
+
 # ------------------------------ the fused steady step as CUDA graphs
 
 
