@@ -109,7 +109,9 @@ def loop_links(feats, edges, cfg, device):
     return links
 
 
-def close_loops_stage(frames, res, k, cfg, args, device):
+def close_loops_stage(frames, res, k, cfg, device, *, mode="rotation",
+                      min_gap=None, min_matches=30, max_edges=8,
+                      submap_refine=2, submap_prior_weight=100.0):
     """The ``--loop-closure`` stage after the SfM run: the frames' features
     (one batched single-scale frontend pass), ``close_loops`` on the run's
     trajectory, then, where the run has one track table (the plain and
@@ -117,10 +119,23 @@ def close_loops_stage(frames, res, k, cfg, args, device):
     re-triangulated under the corrected poses with the run's depth gate (a
     track whose re-triangulation fails in an observing view leaves the
     map).  Submap runs have a table a window instead: with
-    ``--submap-refine`` the cross-seam global BA runs on the loop-closed
+    ``submap_refine`` > 0 the cross-seam global BA runs on the loop-closed
     trajectory, the loop edges' gated matches fused into its tracks, at
-    ``--submap-prior-weight``.  Updates ``res`` in place; returns the
-    report's ``loop_closure`` entry."""
+    ``submap_prior_weight``.
+
+    The settings are the CLI's ``--loop-*`` and ``--submap-*`` flags, with
+    their defaults: ``mode`` the loop-edge measurement, ``min_gap`` the
+    least frame separation of a candidate (None: max(5, F // 4)),
+    ``min_matches`` the match count a candidate needs (and the support an
+    edge needs), ``max_edges`` the candidates measured at most.
+
+    Updates ``res`` in place; returns (the report's ``loop_closure`` entry,
+    ``close_loops``' info: the (F, F) ``counts``, the accepted
+    ``loop_edges``, their ``inliers`` (support) and ``measurements`` (on
+    the device), the ``rejected_edges`` and, where a graph was solved,
+    the pose graph's ``cost`` and ``initial_cost``).  Spans
+    (``utils.profiling``): ``sfm.loop`` over the stage, ``loop.features``
+    and ``loop.retriangulate``; ``close_loops`` records the rest."""
     import numpy as np
     import torch
 
@@ -131,49 +146,57 @@ def close_loops_stage(frames, res, k, cfg, args, device):
     from photogrammetry_tpu_torch.sfm.loop_closure import close_loops
     from photogrammetry_tpu_torch.sfm.submaps import refine_submaps_global
     from photogrammetry_tpu_torch.sfm.triangulate import triangulate_nview
+    from photogrammetry_tpu_torch.utils.profiling import span
 
     num = len(frames)
-    min_gap = (args.loop_min_gap if args.loop_min_gap is not None
-               else max(5, num // 4))
-    stacked = precompute_frontend(
-        torch.as_tensor(np.asarray(frames) if not isinstance(
-            frames, torch.Tensor) else frames, dtype=torch.float32,
-            device=device), make_pairs(cfg.frontend, device=device),
-        cfg.frontend, chunk=cfg.frontend_chunk)
-    feats = [frame_features(stacked, t) for t in range(num)]
-    kmat = torch.as_tensor(np.asarray(k), dtype=torch.float32, device=device)
-    gen = torch.Generator(device=device).manual_seed(LOOP_SEED)
-    rs_lc, ts_lc, info = close_loops(
-        feats, torch.as_tensor(res.rs, device=device),
-        torch.as_tensor(res.ts, device=device), kmat, cfg.frontend,
-        generator=gen, min_gap=min_gap, min_matches=args.loop_min_matches,
-        mode=args.loop_mode, max_candidates=args.loop_max_edges)
-    rs_lc = torch.as_tensor(rs_lc, dtype=torch.float32, device=device)
-    ts_lc = torch.as_tensor(ts_lc, dtype=torch.float32, device=device)
-    report = {"loop_edges": [list(p) for p in info["loop_edges"]],
-              "rejected_edges": len(info.get("rejected_edges", []))}
-    table = getattr(res, "table", None)
-    if table is not None:
-        # keyframe mode: the table's rows are the keyframes
-        rows = torch.as_tensor(getattr(res, "keyframes", range(num)),
+    if min_gap is None:
+        min_gap = max(5, num // 4)
+    with span("sfm.loop", frames=num):
+        with span("loop.features"):
+            stacked = precompute_frontend(
+                torch.as_tensor(np.asarray(frames) if not isinstance(
+                    frames, torch.Tensor) else frames, dtype=torch.float32,
+                    device=device), make_pairs(cfg.frontend, device=device),
+                cfg.frontend, chunk=cfg.frontend_chunk)
+            feats = [frame_features(stacked, t) for t in range(num)]
+        kmat = torch.as_tensor(np.asarray(k), dtype=torch.float32,
                                device=device)
-        pts, depths = triangulate_nview(table.obs, table.obs_mask,
-                                        rs_lc[rows], ts_lc[rows], kmat)
-        has = table.has_point & _depth_ok(table.obs_mask, depths,
-                                          cfg.min_depth, cfg.max_depth)
-        res.table = table._replace(
-            points=torch.where(has[:, None], pts, table.points),
-            has_point=has)
-    res.rs, res.ts = rs_lc.cpu().numpy(), ts_lc.cpu().numpy()
-    if getattr(res, "submaps", None) is not None and args.submap_refine > 0:
-        res.rs, res.ts, res.points = refine_submaps_global(
-            res.rs, res.ts, res.submaps, res.spans, k, num,
-            rounds=args.submap_refine,
-            iterations=cfg.final_ba_iterations or 20, prune_px=cfg.prune_px,
-            min_depth=cfg.min_depth, max_depth=cfg.max_depth,
-            loop_links=loop_links(feats, info["loop_edges"], cfg, device),
-            prior_weight=args.submap_prior_weight, device=device)
-    return report
+        gen = torch.Generator(device=device).manual_seed(LOOP_SEED)
+        rs_lc, ts_lc, info = close_loops(
+            feats, torch.as_tensor(res.rs, device=device),
+            torch.as_tensor(res.ts, device=device), kmat, cfg.frontend,
+            generator=gen, min_gap=min_gap, min_matches=min_matches,
+            mode=mode, max_candidates=max_edges)
+        rs_lc = torch.as_tensor(rs_lc, dtype=torch.float32, device=device)
+        ts_lc = torch.as_tensor(ts_lc, dtype=torch.float32, device=device)
+        report = {"loop_edges": [list(p) for p in info["loop_edges"]],
+                  "rejected_edges": len(info.get("rejected_edges", []))}
+        table = getattr(res, "table", None)
+        if table is not None:
+            with span("loop.retriangulate"):
+                # keyframe mode: the table's rows are the keyframes
+                rows = torch.as_tensor(getattr(res, "keyframes",
+                                               range(num)), device=device)
+                pts, depths = triangulate_nview(table.obs, table.obs_mask,
+                                                rs_lc[rows], ts_lc[rows],
+                                                kmat)
+                has = table.has_point & _depth_ok(
+                    table.obs_mask, depths, cfg.min_depth, cfg.max_depth)
+                res.table = table._replace(
+                    points=torch.where(has[:, None], pts, table.points),
+                    has_point=has)
+        res.rs, res.ts = rs_lc.cpu().numpy(), ts_lc.cpu().numpy()
+        if getattr(res, "submaps", None) is not None and submap_refine > 0:
+            res.rs, res.ts, res.points = refine_submaps_global(
+                res.rs, res.ts, res.submaps, res.spans, k, num,
+                rounds=submap_refine,
+                iterations=cfg.final_ba_iterations or 20,
+                prune_px=cfg.prune_px, min_depth=cfg.min_depth,
+                max_depth=cfg.max_depth,
+                loop_links=loop_links(feats, info["loop_edges"], cfg,
+                                      device),
+                prior_weight=submap_prior_weight, device=device)
+    return report, info
 
 
 def main(argv=None) -> int:
@@ -435,8 +458,13 @@ def _pipeline(args, ap, device, mesh) -> int:
     loop_report = None
     if args.loop_closure:
         with timer.stage("loop_closure"):
-            loop_report = close_loops_stage(frames, res, k, cfg, args,
-                                            device)
+            loop_report, _ = close_loops_stage(
+                frames, res, k, cfg, device, mode=args.loop_mode,
+                min_gap=args.loop_min_gap,
+                min_matches=args.loop_min_matches,
+                max_edges=args.loop_max_edges,
+                submap_refine=args.submap_refine,
+                submap_prior_weight=args.submap_prior_weight)
 
     if not writer:
         return 0

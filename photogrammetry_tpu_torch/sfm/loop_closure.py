@@ -40,6 +40,7 @@ from photogrammetry_tpu_torch.sfm.pose_graph import (
 )
 from photogrammetry_tpu_torch.sfm.triangulate import triangulate_dlt
 from photogrammetry_tpu_torch.sfm.two_view import two_view_pipeline
+from photogrammetry_tpu_torch.utils.profiling import count, span
 from photogrammetry_tpu_torch.utils.reductions import nanmedian
 
 # The largest (Q, K, K) int32 distance tensor one launch writes: 1 GiB is
@@ -259,6 +260,7 @@ def _shortlist_counts(bits, masks, f_total, min_gap, threshold, plain):
     cand = [(int(i // f_total), int(i % f_total)) for i in flat
             if np.isfinite(d2_np.ravel()[i])]
     counts = np.zeros((f_total, f_total), np.int32)
+    count("loop.pairs_matched", len(cand))
     if cand:
         ii, jj = (torch.tensor(x, dtype=torch.int32, device=bits.device)
                   for x in zip(*cand))
@@ -284,7 +286,15 @@ def close_loops(features, rs, ts, k, config,
     Rejected pairs are in info['rejected_edges'].  ``generator`` (default:
     seeded 0, as JAX's default key is PRNGKey(0)) draws the 'essential'
     samples.  Up to DENSE_MAX_FRAMES frames every pair is matched; past
-    that a global-descriptor shortlist picks the pairs.
+    that a global-descriptor shortlist picks the pairs.  Where a graph was
+    solved, info also holds the accepted edges' support (``inliers``), their
+    ``measurements`` ((z_r, z_t) on the device, T_j = Z ∘ T_i) and the
+    graph's ``cost`` and ``initial_cost``.
+
+    Spans (``utils.profiling``): ``loop.detect`` (the pair counts, their
+    read to the host, the candidate selection) and ``loop.measure``;
+    counters ``loop.pairs_matched`` (pairs fully matched),
+    ``loop.candidates`` and ``loop.edges_accepted``.
     """
     dev = features[0].bits.device
     if generator is None:
@@ -294,24 +304,29 @@ def close_loops(features, rs, ts, k, config,
     bits = torch.stack([f.bits for f in features])
     masks = torch.stack([f.points.mask for f in features])
     f_total = bits.shape[0]
-    if f_total <= DENSE_MAX_FRAMES:
-        counts = pairwise_match_counts(bits, masks, config.hamming_threshold,
-                                       plain).cpu().numpy()
-    else:
-        counts = _shortlist_counts(bits, masks, f_total, min_gap,
-                                   config.hamming_threshold, plain)
-    pairs = detect_loop_closures(counts, min_gap=min_gap,
-                                 min_matches=min_matches,
-                                 max_candidates=max_candidates)
+    with span("loop.detect"):
+        if f_total <= DENSE_MAX_FRAMES:
+            counts = pairwise_match_counts(
+                bits, masks, config.hamming_threshold, plain).cpu().numpy()
+            count("loop.pairs_matched", f_total * f_total)
+        else:
+            counts = _shortlist_counts(bits, masks, f_total, min_gap,
+                                       config.hamming_threshold, plain)
+        pairs = detect_loop_closures(counts, min_gap=min_gap,
+                                     min_matches=min_matches,
+                                     max_candidates=max_candidates)
+    count("loop.candidates", len(pairs))
     if not pairs:
         return rs, ts, {"loop_edges": [], "rejected_edges": [],
                         "counts": counts}
-    meas, inl = measure_loop_edges(
-        features, rs, ts, k, pairs, config, generator,
-        mode="revisit" if mode == "revisit_sim3" else mode, plain=plain)
+    with span("loop.measure"):
+        meas, inl = measure_loop_edges(
+            features, rs, ts, k, pairs, config, generator,
+            mode="revisit" if mode == "revisit_sim3" else mode, plain=plain)
     kept = [(p, z, s) for p, z, s in zip(pairs, meas, inl)
             if s >= min_support]
     rejected = [(p, s) for p, s in zip(pairs, inl) if s < min_support]
+    count("loop.edges_accepted", len(kept))
     if not kept:
         return rs, ts, {"loop_edges": [], "rejected_edges": rejected,
                         "counts": counts}
@@ -324,6 +339,7 @@ def close_loops(features, rs, ts, k, config,
         res = optimize_pose_graph(rs_d, ts_d, graph,
                                   num_iterations=num_iterations)
         return res.rs, res.ts, {"loop_edges": pairs, "inliers": inl,
+                                "measurements": meas,
                                 "rejected_edges": rejected,
                                 "counts": counts, "cost": float(res.cost),
                                 "initial_cost": float(res.initial_cost)}
@@ -363,6 +379,7 @@ def close_loops(features, rs, ts, k, config,
     res = optimize_pose_graph_sim3(rs_d, ts_d, graph7,
                                    num_iterations=num_iterations)
     return res.rs, res.ts, {"loop_edges": pairs, "inliers": inl,
+                            "measurements": meas,
                             "rejected_edges": rejected, "counts": counts,
                             "loop_scales": scales_meas,
                             "cost": float(res.cost),

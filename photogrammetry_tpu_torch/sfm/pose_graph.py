@@ -31,6 +31,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from photogrammetry_tpu_torch.core.lie import se3_exp, se3_log
+from photogrammetry_tpu_torch.utils.profiling import count, span
 
 
 class PoseGraph(NamedTuple):
@@ -147,18 +148,25 @@ def _lm_step(r, j_i, j_j, ii, jj, w, fn, lam, dim: int):
 def _lm(cost_of, step, state, init_lambda: float, num_iterations: int):
     """LM over a tuple of state tensors: ``step(state, lam)`` proposes,
     the proposal is kept where its cost is lower, λ halves (down to 1e-10)
-    or quadruples (up to 1e8); all on the device."""
-    cost0 = cost_of(state)
-    cost = cost0
-    lam = torch.full_like(cost0, init_lambda)
-    for _ in range(num_iterations):
-        prop = step(state, lam)
-        new_cost = cost_of(prop)
-        accept = new_cost < cost
-        state = tuple(torch.where(accept, p, s) for p, s in zip(prop, state))
-        cost = torch.where(accept, new_cost, cost)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-10),
-                          torch.clamp(lam * 4.0, max=1e8))
+    or quadruples (up to 1e8); all on the device.  Recording
+    (``utils.profiling``), the span ``pose_graph.solve`` covers it, and
+    the counters take the iterations (``pose_graph.lm_iterations``) and
+    each accept flag (``pose_graph.lm_accepted``, held on the device)."""
+    with span("pose_graph.solve", iterations=num_iterations):
+        cost0 = cost_of(state)
+        cost = cost0
+        lam = torch.full_like(cost0, init_lambda)
+        for _ in range(num_iterations):
+            prop = step(state, lam)
+            new_cost = cost_of(prop)
+            accept = new_cost < cost
+            count("pose_graph.lm_accepted", accept)
+            state = tuple(torch.where(accept, p, s)
+                          for p, s in zip(prop, state))
+            cost = torch.where(accept, new_cost, cost)
+            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-10),
+                              torch.clamp(lam * 4.0, max=1e8))
+        count("pose_graph.lm_iterations", num_iterations)
     return state, cost, cost0
 
 

@@ -399,3 +399,99 @@ def test_run_sfm_loop_closure_cli(tmp_path, capsys, orbit):
     data = json.loads(traj.read_text())
     assert len(data["centers"]) == 14
     assert np.isfinite(np.asarray(data["centers"])).all()
+
+
+def _stage_with_args(frames, res, k, cfg, args, device):
+    """``run_sfm.close_loops_stage`` as it was when it read its settings
+    from the CLI's argparse namespace (the plain and keyframe modes), kept
+    to show the keyword form changes nothing."""
+    from photogrammetry_tpu_torch.sfm.frontend import (
+        frame_features, make_pairs, precompute_frontend,
+    )
+    from photogrammetry_tpu_torch.sfm.incremental import _depth_ok
+    from photogrammetry_tpu_torch.sfm.triangulate import triangulate_nview
+
+    num = len(frames)
+    min_gap = (args.loop_min_gap if args.loop_min_gap is not None
+               else max(5, num // 4))
+    stacked = precompute_frontend(
+        torch.as_tensor(np.asarray(frames), dtype=torch.float32,
+                        device=device), make_pairs(cfg.frontend,
+                                                   device=device),
+        cfg.frontend, chunk=cfg.frontend_chunk)
+    feats = [frame_features(stacked, t) for t in range(num)]
+    kmat = torch.as_tensor(np.asarray(k), dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(run_sfm.LOOP_SEED)
+    rs_lc, ts_lc, info = lc.close_loops(
+        feats, torch.as_tensor(res.rs, device=device),
+        torch.as_tensor(res.ts, device=device), kmat, cfg.frontend,
+        generator=gen, min_gap=min_gap, min_matches=args.loop_min_matches,
+        mode=args.loop_mode, max_candidates=args.loop_max_edges)
+    rs_lc = torch.as_tensor(rs_lc, dtype=torch.float32, device=device)
+    ts_lc = torch.as_tensor(ts_lc, dtype=torch.float32, device=device)
+    report = {"loop_edges": [list(p) for p in info["loop_edges"]],
+              "rejected_edges": len(info.get("rejected_edges", []))}
+    table = res.table
+    pts, depths = triangulate_nview(table.obs, table.obs_mask, rs_lc, ts_lc,
+                                    kmat)
+    has = table.has_point & _depth_ok(table.obs_mask, depths, cfg.min_depth,
+                                      cfg.max_depth)
+    res.table = table._replace(
+        points=torch.where(has[:, None], pts, table.points), has_point=has)
+    res.rs, res.ts = rs_lc.cpu().numpy(), ts_lc.cpu().numpy()
+    return report
+
+
+@pytest.mark.parametrize("flags,args", [
+    (["--loop-min-gap", "5", "--loop-min-matches", "25"],
+     dict(loop_min_gap=5, loop_min_matches=25, loop_max_edges=8,
+          loop_mode="rotation")),
+    (["--loop-mode", "revisit", "--loop-max-edges", "2"],
+     dict(loop_min_gap=None, loop_min_matches=30, loop_max_edges=2,
+          loop_mode="revisit")),
+])
+def test_run_sfm_loop_closure_cli_as_with_the_args_form(
+        tmp_path, capsys, monkeypatch, orbit, flags, args):
+    """``run_sfm --loop-closure`` passes its flags to the stage's keyword
+    settings: the stage's report, poses and landmarks equal those of the
+    stage as it read the argparse namespace, on the same SfM run."""
+    import copy
+
+    from PIL import Image
+
+    frames_dir = tmp_path / "frames"
+    frames_dir.mkdir()
+    for i, frame in enumerate(orbit[0]):
+        Image.fromarray(frame).save(frames_dir / f"{i:03d}.png")
+    stage = run_sfm.close_loops_stage
+    seen = []
+
+    def both(frames, res, k, cfg, device, **settings):
+        before = copy.copy(res)
+        want = _stage_with_args(frames, before, k, cfg,
+                                SimpleNamespace(**args), device)
+        got, info = stage(frames, res, k, cfg, device, **settings)
+        seen.append((want, got, before, res, info))
+        return got, info
+
+    monkeypatch.setattr(run_sfm, "close_loops_stage", both)
+    traj = tmp_path / "traj.json"
+    assert run_sfm.main([str(frames_dir), "--device", "cpu",
+                         "--fx", "260", "--cx", "160", "--cy", "120",
+                         "--detection-threshold", "20", "--loop-closure",
+                         *flags, "--trajectory", str(traj),
+                         "--cloud", str(tmp_path / "cloud.ply")]) == 0
+    report = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                         if ln.startswith("{")][0])
+    (want, got, before, after, info), = seen
+    assert got == want == report["loop_closure"]
+    assert want["loop_edges"], "no loop edge: the comparison shows nothing"
+    np.testing.assert_array_equal(after.rs, before.rs)
+    np.testing.assert_array_equal(after.ts, before.ts)
+    for name in ("points", "has_point"):
+        assert torch.equal(getattr(after.table, name),
+                           getattr(before.table, name))
+    data = json.loads(traj.read_text())
+    np.testing.assert_array_equal(np.asarray(data["rotations"]),
+                                  before.rs.astype(np.float64))
+    assert [list(e) for e in info["loop_edges"]] == want["loop_edges"]
