@@ -16,8 +16,6 @@ on CUDA a repeated call replays the loop as one cached CUDA graph.
 """
 from __future__ import annotations
 
-import functools
-from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -27,10 +25,7 @@ from photogrammetry_tpu_torch.kernels.schur import (
     schur_products, schur_products_plain,
 )
 from photogrammetry_tpu_torch.utils import graphs
-from photogrammetry_tpu_torch.utils.graphs import (
-    SegmentedGraph, allow_sync, tree_leaves, tree_map,
-)
-from photogrammetry_tpu_torch.utils.profiling import count, is_recording, span
+from photogrammetry_tpu_torch.utils.profiling import count, span
 
 
 class BAProblem(NamedTuple):
@@ -275,111 +270,23 @@ def _lm_loop(state: BAState, prob: BAProblem, fixed_cameras, prior_rs,
 
 # -- the LM loop as a cached CUDA graph --------------------------------------
 #
-# A CUDA solve whose key was seen before replays a capture of ``_lm_loop``:
-# the same kernels on the same values, launched as one graph.  The key holds
-# all that the capture bakes in: each input tensor's shape, strides and
-# dtype (None where not given), the device and the Python arguments.  A key
-# is captured on its second call, so one-off shapes pay no capture.  At most
-# MAX_GRAPHS captures are kept: a key that finds the cache full runs eagerly
-# and evicts the least recently replayed capture, so that its next call
-# captures.  The keys seen once are remembered up to MAX_SEEN.
+# ``utils.graphs.LoopCache``: a CUDA solve whose key (the input layouts, the
+# device and every Python argument) was seen before replays a capture of
+# ``_lm_loop``.  At most MAX_GRAPHS captures are kept and MAX_SEEN keys
+# seen once remembered.
 
 MAX_GRAPHS = 8
 MAX_SEEN = 64
-_GRAPHS: OrderedDict = OrderedDict()    # key -> _LoopGraph
-_SEEN: OrderedDict = OrderedDict()      # key -> None
-# device -> the one capture stream: a library workspace allocated for a
-# stream is kept for the process, so captures share one
-_STREAMS: dict = {}
-
-
-def _graph_key(args, opts) -> tuple:
-    """The cache key of ``_lm_loop(*args, **opts)``."""
-    layout = tuple(None if x is None else (tuple(x.shape), x.stride(),
-                                           x.dtype)
-                   for x in (*args[0], *args[1], *args[2:]))
-    return (args[0].rs.device, layout, tuple(sorted(opts.items())))
-
-
-class _LoopGraph:
-    """One captured LM loop: static input buffers (``empty_like`` the
-    caller's tensors), the ``SegmentedGraph`` (one segment: the loop reads
-    nothing back) and the buffers its replays write."""
-
-    def __init__(self, args, opts, stream):
-        dev = args[0].rs.device
-        self.inputs = tree_map(torch.empty_like, args)
-        self._load(args)
-        self.graph = SegmentedGraph(dev, stream=stream)
-        self.outputs = self.graph.capture(
-            functools.partial(_lm_loop, tally=True, **opts), *self.inputs)
-        self.last_stream = torch.cuda.current_stream(dev)
-
-    def _load(self, args):
-        for dst, src in zip(tree_leaves(self.inputs), tree_leaves(args)):
-            dst.copy_(src)
-
-    def __call__(self, args):
-        """Copy ``args`` in, replay, and return copies of (state, cost,
-        initial cost): the next replay overwrites the buffers.  Recording,
-        the accepted steps go to ``ba.lm_accepted`` as a copy too.  A
-        call on another stream than the last (the fused step's warm-up
-        runs on its own) waits for the last."""
-        cur = torch.cuda.current_stream(self.last_stream.device)
-        if cur != self.last_stream:
-            cur.wait_stream(self.last_stream)
-            self.last_stream = cur
-        self._load(args)
-        self.graph.replay()
-        state, cost, cost0, accepted = self.outputs
-        if is_recording():
-            count("ba.lm_accepted", accepted.clone())
-        return tree_map(torch.clone, (state, cost, cost0))
-
-
-def _capture(key, args, opts):
-    """Capture the loop into the cache, on the device's capture stream,
-    and replay it for this call.  The key's first call ran eagerly: the
-    library handles the capture needs exist."""
-    dev = args[0].rs.device
-    stream = _STREAMS.get(dev)
-    if stream is None:
-        stream = _STREAMS[dev] = torch.cuda.Stream(dev)
-    entry = _GRAPHS[key] = _LoopGraph(args, opts, stream)
-    return entry(args)
+_CACHE = graphs.LoopCache(_lm_loop, "ba")
+_GRAPHS = _CACHE.graphs
+_SEEN = _CACHE.seen
+_graph_key = graphs.loop_key
 
 
 def _solve(args, opts):
     """(state, cost, initial cost) of the LM loop: eager, captured or
     replayed, as the device, the capture state and the cache decide."""
-    if not args[0].rs.is_cuda:
-        return _lm_loop(*args, **opts)[:3]
-    if graphs._ACTIVE is not None or torch.cuda.is_current_stream_capturing():
-        # recorded into the enclosing capture
-        count("ba.eager_solves", 1)
-        return _lm_loop(*args, **opts)[:3]
-    key = _graph_key(args, opts)
-    entry = _GRAPHS.get(key)
-    if entry is not None:
-        _GRAPHS.move_to_end(key)
-        count("ba.graph_replays", 1)
-        return entry(args)
-    if key in _SEEN and len(_GRAPHS) < MAX_GRAPHS:
-        count("ba.graph_captures", 1)
-        count("ba.graph_replays", 1)
-        return _capture(key, args, opts)
-    count("ba.eager_solves", 1)
-    if key not in _SEEN:
-        _SEEN[key] = None
-        if len(_SEEN) > MAX_SEEN:
-            _SEEN.popitem(last=False)
-    elif _GRAPHS:
-        # the cache is full: the evicted capture's last replay may still
-        # be queued
-        with allow_sync():
-            torch.cuda.current_stream(args[0].rs.device).synchronize()
-        _GRAPHS.popitem(last=False)
-    return _lm_loop(*args, **opts)[:3]
+    return _CACHE.solve(args, opts, MAX_GRAPHS, MAX_SEEN)
 
 
 def bundle_adjust(state: BAState, prob: BAProblem,

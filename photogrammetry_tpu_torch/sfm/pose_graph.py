@@ -21,7 +21,9 @@ summation order, where ``index_put_(accumulate=True)`` on CUDA adds in no
 fixed order) and solved with ``torch.linalg.solve_ex`` (no error check, so
 no host read; a singular step gives a non-finite cost and is rejected).
 The LM loop runs a fixed ``num_iterations`` on the device, accept/reject
-by ``torch.where`` on the cost, as JAX runs it in one ``lax.scan``.
+by ``torch.where`` on the cost, as JAX runs it in one ``lax.scan``; on
+CUDA a repeated solve replays the loop as one cached CUDA graph
+(``utils.graphs.LoopCache``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from photogrammetry_tpu_torch.core.lie import se3_exp, se3_log
+from photogrammetry_tpu_torch.utils import graphs
 from photogrammetry_tpu_torch.utils.profiling import count, span
 
 
@@ -102,11 +105,10 @@ class PoseGraphResult(NamedTuple):
 
 def _fixed(n: int, fixed_nodes, like: torch.Tensor) -> torch.Tensor:
     """(n,) float: 1 for free nodes, 0 for frozen ones (node 0 by default,
-    the gauge)."""
+    the gauge; made on the device, where writing a Python 0 into a card
+    tensor synchronises)."""
     if fixed_nodes is None:
-        fn = like.new_ones((n,))
-        fn[0] = 0.0
-        return fn
+        return (torch.arange(n, device=like.device) > 0).to(like.dtype)
     return torch.as_tensor(fixed_nodes, device=like.device).to(like.dtype)
 
 
@@ -145,40 +147,80 @@ def _lm_step(r, j_i, j_j, ii, jj, w, fn, lam, dim: int):
     return _damped_step(h, b, fn, lam, dim)
 
 
-def _lm(cost_of, step, state, init_lambda: float, num_iterations: int):
+def _lm_iterations(cost_of, step, state, init_lambda: float,
+                   num_iterations: int, tally: bool = False):
     """LM over a tuple of state tensors: ``step(state, lam)`` proposes,
     the proposal is kept where its cost is lower, λ halves (down to 1e-10)
-    or quadruples (up to 1e8); all on the device.  Recording
-    (``utils.profiling``), the span ``pose_graph.solve`` covers it, and
-    the counters take the iterations (``pose_graph.lm_iterations``) and
-    each accept flag (``pose_graph.lm_accepted``, held on the device)."""
+    or quadruples (up to 1e8); all on the device.  Returns (state, cost,
+    initial cost, accepted), ``accepted`` the number of accepted steps
+    (0-dim) where ``tally``, else None.  Each accept flag also goes to
+    the counter ``pose_graph.lm_accepted`` (held on the device), which
+    records nothing inside a capture."""
+    cost0 = cost_of(state)
+    cost = cost0
+    lam = torch.full_like(cost0, init_lambda)
+    accepts = []
+    for _ in range(num_iterations):
+        prop = step(state, lam)
+        new_cost = cost_of(prop)
+        accept = new_cost < cost
+        count("pose_graph.lm_accepted", accept)
+        if tally:
+            accepts.append(accept)
+        state = tuple(torch.where(accept, p, s)
+                      for p, s in zip(prop, state))
+        cost = torch.where(accept, new_cost, cost)
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-10),
+                          torch.clamp(lam * 4.0, max=1e8))
+    accepted = None
+    if tally:
+        accepted = (torch.stack(accepts).sum() if accepts else
+                    torch.zeros((), dtype=torch.int64, device=cost0.device))
+    return state, cost, cost0, accepted
+
+
+def _lm(cost_of, step, state, init_lambda: float, num_iterations: int):
+    """``_lm_iterations`` run eagerly, for a step that a capture cannot
+    hold (the distributed one's collectives): (state, cost, initial
+    cost).  Recording (``utils.profiling``), the span ``pose_graph.solve``
+    covers it and ``pose_graph.lm_iterations`` counts the iterations."""
     with span("pose_graph.solve", iterations=num_iterations):
-        cost0 = cost_of(state)
-        cost = cost0
-        lam = torch.full_like(cost0, init_lambda)
-        for _ in range(num_iterations):
-            prop = step(state, lam)
-            new_cost = cost_of(prop)
-            accept = new_cost < cost
-            count("pose_graph.lm_accepted", accept)
-            state = tuple(torch.where(accept, p, s)
-                          for p, s in zip(prop, state))
-            cost = torch.where(accept, new_cost, cost)
-            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-10),
-                              torch.clamp(lam * 4.0, max=1e8))
+        state, cost, cost0, _ = _lm_iterations(cost_of, step, state,
+                                               init_lambda, num_iterations)
         count("pose_graph.lm_iterations", num_iterations)
     return state, cost, cost0
 
 
-def optimize_pose_graph(rs: torch.Tensor, ts: torch.Tensor,
-                        graph: PoseGraph, num_iterations: int = 20,
-                        init_lambda: float = 1e-4,
-                        fixed_nodes: torch.Tensor | None = None
-                        ) -> PoseGraphResult:
-    """LM pose-graph optimization on the tensors' device; node 0 frozen by
-    default (gauge)."""
-    n = rs.shape[0]
-    fn = _fixed(n, fixed_nodes, ts)
+# -- the LM loops as cached CUDA graphs --------------------------------------
+#
+# ``utils.graphs.LoopCache``: on CUDA a solve whose key (the input layouts,
+# the device, the iteration count and λ) was seen before replays a capture
+# of its loop, which takes tensors alone: the state, the graph and the
+# free-node mask.  At most MAX_GRAPHS captures a loop are kept and MAX_SEEN
+# keys seen once remembered.
+
+MAX_GRAPHS = 8
+MAX_SEEN = 64
+
+
+def _solve(cache: graphs.LoopCache, args, num_iterations: int,
+           init_lambda: float):
+    """(state, cost, initial cost) of the cache's loop on ``args``.
+    Recording, the span ``pose_graph.solve`` covers it (copy-in, replay
+    or eager loop, copies out) and ``pose_graph.lm_iterations`` counts the
+    iterations."""
+    opts = dict(num_iterations=int(num_iterations),
+                init_lambda=float(init_lambda))
+    with span("pose_graph.solve", iterations=num_iterations):
+        out = cache.solve(args, opts, MAX_GRAPHS, MAX_SEEN)
+        count("pose_graph.lm_iterations", num_iterations)
+    return out
+
+
+def _se3_loop(rs, ts, graph: PoseGraph, fn, *, num_iterations: int,
+              init_lambda: float, tally: bool = False):
+    """``optimize_pose_graph``'s LM loop: ((rs, ts), cost, initial cost,
+    accepted steps or None)."""
     ii = graph.edges[:, 0].long()
     jj = graph.edges[:, 1].long()
     w = graph.weights
@@ -196,8 +238,27 @@ def optimize_pose_graph(rs: torch.Tensor, ts: torch.Tensor,
         dr, dt = se3_exp(delta)
         return dr @ rs, _mv(dr, ts) + dt
 
-    (rs, ts), cost, cost0 = _lm(cost_of, step, (rs, ts), init_lambda,
-                                num_iterations)
+    return _lm_iterations(cost_of, step, (rs, ts), init_lambda,
+                          num_iterations, tally)
+
+
+_SE3_GRAPHS = graphs.LoopCache(_se3_loop, "pose_graph")
+
+
+def optimize_pose_graph(rs: torch.Tensor, ts: torch.Tensor,
+                        graph: PoseGraph, num_iterations: int = 20,
+                        init_lambda: float = 1e-4,
+                        fixed_nodes: torch.Tensor | None = None
+                        ) -> PoseGraphResult:
+    """LM pose-graph optimization on the tensors' device; node 0 frozen by
+    default (gauge).  On CUDA a call whose tensors repeat an earlier
+    call's layouts, with the same options, replays a cached CUDA graph of
+    the loop (the same kernels and bits), captured on the key's second
+    call; recording counts ``pose_graph.graph_replays``,
+    ``pose_graph.graph_captures`` and ``pose_graph.eager_solves``."""
+    fn = _fixed(rs.shape[0], fixed_nodes, ts)
+    (rs, ts), cost, cost0 = _solve(_SE3_GRAPHS, (rs, ts, graph, fn),
+                                   num_iterations, init_lambda)
     return PoseGraphResult(rs=rs, ts=ts, cost=cost, initial_cost=cost0)
 
 
@@ -263,18 +324,11 @@ class PoseGraphSim3Result(NamedTuple):
     initial_cost: torch.Tensor
 
 
-def optimize_pose_graph_sim3(rs: torch.Tensor, ts: torch.Tensor,
-                             graph: PoseGraphSim3,
-                             num_iterations: int = 20,
-                             init_lambda: float = 1e-4,
-                             fixed_nodes: torch.Tensor | None = None
-                             ) -> PoseGraphSim3Result:
-    """LM Sim(3) pose-graph optimization; node 0 frozen (gauge: its pose
-    and its unit scale).  Input poses are SE(3) (initial scales 1); the
-    returned (rs, ts) have each node's optimized scale folded into its
-    translation (C_i = -R_i^T t_i)."""
-    n = rs.shape[0]
-    fn = _fixed(n, fixed_nodes, ts)
+def _sim3_loop(rs, ts, gs, graph: PoseGraphSim3, fn, *,
+               num_iterations: int, init_lambda: float,
+               tally: bool = False):
+    """``optimize_pose_graph_sim3``'s LM loop over (rs, ts, gs = log
+    scale): ((rs, ts, gs), cost, initial cost, accepted steps or None)."""
     ii = graph.edges[:, 0].long()
     jj = graph.edges[:, 1].long()
     w = graph.weights
@@ -292,8 +346,29 @@ def optimize_pose_graph_sim3(rs: torch.Tensor, ts: torch.Tensor,
         dr, dt = se3_exp(delta[:, :6])
         return dr @ rs, _mv(dr, ts) + dt, gs + delta[:, 6]
 
-    (rs, ts, gs), cost, cost0 = _lm(cost_of, step, (rs, ts, ts.new_zeros(n)),
-                                    init_lambda, num_iterations)
+    return _lm_iterations(cost_of, step, (rs, ts, gs), init_lambda,
+                          num_iterations, tally)
+
+
+_SIM3_GRAPHS = graphs.LoopCache(_sim3_loop, "pose_graph")
+
+
+def optimize_pose_graph_sim3(rs: torch.Tensor, ts: torch.Tensor,
+                             graph: PoseGraphSim3,
+                             num_iterations: int = 20,
+                             init_lambda: float = 1e-4,
+                             fixed_nodes: torch.Tensor | None = None
+                             ) -> PoseGraphSim3Result:
+    """LM Sim(3) pose-graph optimization; node 0 frozen (gauge: its pose
+    and its unit scale).  Input poses are SE(3) (initial scales 1); the
+    returned (rs, ts) have each node's optimized scale folded into its
+    translation (C_i = -R_i^T t_i).  On CUDA a repeated call replays a
+    cached CUDA graph of the loop, as ``optimize_pose_graph``'s does."""
+    n = rs.shape[0]
+    fn = _fixed(n, fixed_nodes, ts)
+    (rs, ts, gs), cost, cost0 = _solve(
+        _SIM3_GRAPHS, (rs, ts, ts.new_zeros(n), graph, fn), num_iterations,
+        init_lambda)
     scales = torch.exp(gs)
     # fold the scale into the translation: C_i = -R^T t / s  ->  t' = t / s
     return PoseGraphSim3Result(rs=rs, ts=ts / scales[:, None], scales=scales,

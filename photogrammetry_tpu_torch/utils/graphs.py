@@ -20,12 +20,19 @@ Philox offset as the eager code would.
 A kernel wrapper counts its launches with ``count_launch``.  A capture
 runs nothing, so a launch recorded during one is counted at each replay,
 as an eager call of the function would count it.
+
+``LoopCache`` keeps the captures of a fixed-count device loop (an LM
+solve) by the layout of its inputs, and replays them on CUDA.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
+from collections import OrderedDict
 
 import torch
+
+from photogrammetry_tpu_torch.utils import profiling
 
 # The SegmentedGraph capturing in this process, or None.  Module state
 # because the library calls that cut a capture sit deep inside the code
@@ -173,3 +180,137 @@ class SegmentedGraph:
                     o.copy_(n)
         for fn in self.launches:
             fn.launches += 1
+
+
+# -- fixed-count loops as cached CUDA graphs ----------------------------------
+#
+# A CUDA solve whose key was seen before replays a capture of the loop: the
+# same kernels on the same values, launched as one graph.  The key holds all
+# that the capture bakes in: each input tensor's shape, strides and dtype
+# (None where not given), the device and the Python arguments.  A key is
+# captured on its second call, so one-off shapes pay no capture.  At most
+# ``max_graphs`` captures are kept: a key that finds the cache full runs
+# eagerly and evicts the least recently replayed capture, so that its next
+# call captures.  The keys seen once are remembered up to ``max_seen``.
+
+# device -> the one capture stream: a library workspace allocated for a
+# stream is kept for the process, so every cache's captures share one
+_STREAMS: dict = {}
+
+
+def _layouts(tree) -> list:
+    """(shape, strides, dtype) of each tensor of ``tree`` in ``tree_map``'s
+    order, None for each None."""
+    if tree is None:
+        return [None]
+    if isinstance(tree, torch.Tensor):
+        return [(tuple(tree.shape), tree.stride(), tree.dtype)]
+    return [layout for x in tree for layout in _layouts(x)]
+
+
+def loop_key(args, opts) -> tuple:
+    """The cache key of ``loop(*args, **opts)``."""
+    return (tree_leaves(args)[0].device, tuple(_layouts(args)),
+            tuple(sorted(opts.items())))
+
+
+class _LoopGraph:
+    """One captured loop: static input buffers (``empty_like`` the caller's
+    tensors), the ``SegmentedGraph`` (one segment: the loop reads nothing
+    back) and the buffers its replays write."""
+
+    def __init__(self, loop, args, opts, stream):
+        dev = tree_leaves(args)[0].device
+        self.inputs = tree_map(torch.empty_like, args)
+        self._load(args)
+        self.graph = SegmentedGraph(dev, stream=stream)
+        self.outputs = self.graph.capture(
+            functools.partial(loop, tally=True, **opts), *self.inputs)
+        self.last_stream = torch.cuda.current_stream(dev)
+
+    def _load(self, args):
+        for dst, src in zip(tree_leaves(self.inputs), tree_leaves(args)):
+            dst.copy_(src)
+
+    def __call__(self, args, accepted_counter: str):
+        """Copy ``args`` in, replay, and return copies of the loop's
+        outputs but its tally: the next replay overwrites the buffers.
+        Recording, the tally goes to ``accepted_counter`` as a copy too.
+        A call on another stream than the last (the fused step's warm-up
+        runs on its own) waits for the last."""
+        cur = torch.cuda.current_stream(self.last_stream.device)
+        if cur != self.last_stream:
+            cur.wait_stream(self.last_stream)
+            self.last_stream = cur
+        self._load(args)
+        self.graph.replay()
+        *outputs, accepted = self.outputs
+        if profiling.is_recording():
+            profiling.count(accepted_counter, accepted.clone())
+        return tree_map(torch.clone, tuple(outputs))
+
+
+class LoopCache:
+    """The captures of one fixed-count loop, by key.
+
+    ``loop(*args, tally=False, **opts)`` takes tensors (a nest of tuples,
+    NamedTuples and None) and Python options, reads nothing back to the
+    host, and returns its outputs followed by the number of accepted
+    steps, a 0-dim tensor where ``tally`` is true, else None; it counts
+    each step's accept flag in ``<prefix>.lm_accepted``.  Recording
+    (``utils.profiling``), a CUDA solve counts ``<prefix>.graph_replays``
+    (a capture's own replay included), ``<prefix>.graph_captures`` and
+    ``<prefix>.eager_solves`` (CUDA solves run eagerly)."""
+
+    def __init__(self, loop, prefix: str):
+        self.loop = loop
+        self.graphs: OrderedDict = OrderedDict()    # key -> _LoopGraph
+        self.seen: OrderedDict = OrderedDict()      # key -> None
+        self.replays = f"{prefix}.graph_replays"
+        self.captures = f"{prefix}.graph_captures"
+        self.eager = f"{prefix}.eager_solves"
+        self.accepted = f"{prefix}.lm_accepted"
+
+    def _capture(self, key, args, opts):
+        """Capture the loop into the cache, on the device's capture stream,
+        and replay it for this call.  The key's first call ran eagerly: the
+        library handles the capture needs exist."""
+        dev = tree_leaves(args)[0].device
+        stream = _STREAMS.get(dev)
+        if stream is None:
+            stream = _STREAMS[dev] = torch.cuda.Stream(dev)
+        entry = self.graphs[key] = _LoopGraph(self.loop, args, opts, stream)
+        return entry(args, self.accepted)
+
+    def solve(self, args, opts, max_graphs: int, max_seen: int):
+        """The loop's outputs but its tally: eager, captured or replayed, as
+        the device, the capture state and the cache decide."""
+        first = tree_leaves(args)[0]
+        if not first.is_cuda:
+            return self.loop(*args, **opts)[:-1]
+        if _ACTIVE is not None or torch.cuda.is_current_stream_capturing():
+            # recorded into the enclosing capture
+            profiling.count(self.eager, 1)
+            return self.loop(*args, **opts)[:-1]
+        key = loop_key(args, opts)
+        entry = self.graphs.get(key)
+        if entry is not None:
+            self.graphs.move_to_end(key)
+            profiling.count(self.replays, 1)
+            return entry(args, self.accepted)
+        if key in self.seen and len(self.graphs) < max_graphs:
+            profiling.count(self.captures, 1)
+            profiling.count(self.replays, 1)
+            return self._capture(key, args, opts)
+        profiling.count(self.eager, 1)
+        if key not in self.seen:
+            self.seen[key] = None
+            if len(self.seen) > max_seen:
+                self.seen.popitem(last=False)
+        elif self.graphs:
+            # the cache is full: the evicted capture's last replay may still
+            # be queued
+            with allow_sync():
+                torch.cuda.current_stream(first.device).synchronize()
+            self.graphs.popitem(last=False)
+        return self.loop(*args, **opts)[:-1]

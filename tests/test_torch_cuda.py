@@ -313,20 +313,12 @@ def test_precompute_matching_on_the_card(dev, chunk):
     assert int(got.num1[1:].min()) > 40
 
 
-@pytest.mark.parametrize("mode", ["rotation", "revisit", "revisit_sim3",
-                                  "essential"])
-def test_close_loops_every_mode_on_the_card(dev, mode):
-    """close_loops on the card in each mode, through the kernels and
-    through their plain versions under the same draws: the same counts,
-    edges and support, poses within 1e-5; the batched Hamming launched
-    once (one chunk).  And on CPU copies of the same inputs (the path the
-    CPU tests hold to the JAX package): the same counts, and outside
-    'essential' mode (whose draws a CPU generator makes differently) the
-    same edges and support, poses within 1e-4."""
+def _revisit_scene(dev):
+    """The 5-frame pan and a sixth frame revisiting frame 2 (0.02 off), on
+    the card: (features, rs, ts, K, frontend config) for close_loops."""
     from photogrammetry_tpu_torch.sfm.frontend import (
         FrontendConfig, frame_features, make_pairs, precompute_frontend,
     )
-    from photogrammetry_tpu_torch.sfm.loop_closure import close_loops
     from photogrammetry_tpu_torch.synth.star_scene import (
         StarSceneConfig, generate_sequence, render_frame,
     )
@@ -350,7 +342,22 @@ def test_close_loops_every_mode_on_the_card(dev, mode):
                                                device=dev),
                                   make_pairs(fc, device=dev), fc)
     feats = [frame_features(stacked, t) for t in range(len(frames))]
-    kmat = torch.tensor(k, device=dev)
+    return feats, rs, ts, torch.tensor(k, device=dev), fc
+
+
+@pytest.mark.parametrize("mode", ["rotation", "revisit", "revisit_sim3",
+                                  "essential"])
+def test_close_loops_every_mode_on_the_card(dev, mode):
+    """close_loops on the card in each mode, through the kernels and
+    through their plain versions under the same draws: the same counts,
+    edges and support, poses within 1e-5; the batched Hamming launched
+    once (one chunk).  And on CPU copies of the same inputs (the path the
+    CPU tests hold to the JAX package): the same counts, and outside
+    'essential' mode (whose draws a CPU generator makes differently) the
+    same edges and support, poses within 1e-4."""
+    from photogrammetry_tpu_torch.sfm.loop_closure import close_loops
+
+    feats, rs, ts, kmat, fc = _revisit_scene(dev)
     out = []
     for plain in (False, True):
         gen = torch.Generator(device=dev).manual_seed(7)
@@ -1036,6 +1043,199 @@ def test_staged_sfm_with_ba_graphs_equals_eager(dev, ba_cache, monkeypatch):
     ba_cache._GRAPHS.clear()
     eager = run()
     assert _same_run(first, eager) and _same_run(second, eager)
+
+
+# ------------------------------ the pose graph's LM as a cached CUDA graph
+
+
+def _pg_case(dev, n, e, seed, sim3):
+    """A walk of ``n`` nodes out along x and back (the way back 0.05 off),
+    its ``n - 1`` odometry edges and ``e - n + 1`` loop edges between
+    nodes at least 5 apart, each measured with noise drawn from ``seed``
+    (loop weight 4; Sim(3): loop scales 0.9-1.1), and the poses the
+    odometry integrates to: (args of the cache's loop but the mask,
+    graph, the optimiser)."""
+    from photogrammetry_tpu_torch.core.lie import se3_exp, so3_exp
+    from photogrammetry_tpu_torch.sfm import pose_graph as pg
+
+    g = torch.Generator().manual_seed(seed)
+    half = (n + 1) // 2
+    x = torch.cat([torch.arange(half), torch.arange(n - half - 1, -1, -1)
+                   - 1.0]).float() * 0.1
+    centres = torch.stack([x, (torch.arange(n) >= half) * 0.05,
+                           torch.zeros(n)], -1)
+    rs = so3_exp(torch.randn(n, 3, generator=g) * 0.05)
+    ts = -(rs @ centres[..., None])[..., 0]
+    far = [(i, j) for i in range(n) for j in range(i + 5, n)]
+    pick = torch.randperm(len(far), generator=g)[:e - n + 1]
+    edges = torch.tensor([(i, i + 1) for i in range(n - 1)]
+                         + [far[k] for k in pick.tolist()], dtype=torch.int32)
+    ii, jj = edges[:, 0].long(), edges[:, 1].long()
+    zr, zt = pg.relative_pose(rs[ii], ts[ii], rs[jj], ts[jj])
+    dr, dt = se3_exp(torch.randn(e, 6, generator=g) * 0.02)
+    zr, zt = dr @ zr, (dr @ zt[..., None])[..., 0] + dt
+    r0, t0 = [rs[0]], [ts[0]]
+    for k in range(n - 1):
+        r0.append(zr[k] @ r0[-1])
+        t0.append(zr[k] @ t0[-1] + zt[k])
+    w = torch.where(torch.arange(e) < n - 1, 1.0, 4.0)
+    put = dict(dtype=torch.float32, device=dev)
+    rs0, ts0 = torch.stack(r0).to(**put), torch.stack(t0).to(**put)
+    common = dict(edges=edges.to(dev), z_rs=zr.to(**put), z_ts=zt.to(**put),
+                  weights=w.to(**put))
+    if not sim3:
+        return (rs0, ts0), pg.PoseGraph(**common), pg.optimize_pose_graph
+    zs = torch.where(torch.arange(e) < n - 1, 1.0,
+                     0.9 + 0.2 * torch.rand(e, generator=g))
+    return ((rs0, ts0, ts0.new_zeros(n)),
+            pg.PoseGraphSim3(z_ss=zs.to(**put), **common),
+            pg.optimize_pose_graph_sim3)
+
+
+def _pg_eager(state, graph, sim3, num_iterations=20):
+    """The eager LM loop on the card, as ``optimize_pose_graph`` (``_sim3``)
+    returns it: ((rs, ts, scales or None, cost, initial cost), accepted)."""
+    from photogrammetry_tpu_torch.sfm import pose_graph as pg
+
+    cache = pg._SIM3_GRAPHS if sim3 else pg._SE3_GRAPHS
+    fn = pg._fixed(state[0].shape[0], None, state[1])
+    st, cost, cost0, accepted = cache.loop(
+        *state, graph, fn, num_iterations=num_iterations, init_lambda=1e-4,
+        tally=True)
+    if not sim3:
+        return (st[0], st[1], None, cost, cost0), int(accepted)
+    scales = torch.exp(st[2])
+    return (st[0], st[1] / scales[:, None], scales, cost, cost0), \
+        int(accepted)
+
+
+def _same_pg(res, ref) -> bool:
+    got = (res.rs, res.ts, getattr(res, "scales", None), res.cost,
+           res.initial_cost)
+    return all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, ref))
+
+
+@pytest.fixture
+def pg_cache():
+    """``sfm/pose_graph.py``'s two graph caches emptied around the test."""
+    from photogrammetry_tpu_torch.sfm import pose_graph as pg
+
+    def empty():
+        torch.cuda.synchronize()
+        for cache in (pg._SE3_GRAPHS, pg._SIM3_GRAPHS):
+            cache.graphs.clear()
+            cache.seen.clear()
+
+    empty()
+    yield pg
+    empty()
+
+
+def _recorded(fn):
+    """(fn(), the counters it recorded)."""
+    from photogrammetry_tpu_torch.utils import profiling
+
+    profiling.clear()
+    with profiling.recording():
+        out = fn()
+    counters = profiling.read_counters()
+    profiling.clear()
+    return out, counters
+
+
+@pytest.mark.parametrize("sim3", [False, True])
+@pytest.mark.parametrize("n,e", [(23, 30), (40, 47)])
+def test_pose_graph_replay_bit_identical(dev, pg_cache, n, e, sim3):
+    """At outback23's shape (23 nodes, 30 edges) and another: the first
+    call eager, the second captures and replays, the next replay; each
+    replay of four graphs of the shape (seeds 0-3, one capture) gives that
+    graph's eager bits in rs, ts, scales, cost and initial cost, and its
+    accept tally equals the eager run's ``pose_graph.lm_accepted``.  A
+    result stays as it was through the later replays."""
+    cases = [_pg_case(dev, n, e, seed, sim3) for seed in range(4)]
+    refs = [_pg_eager(state, graph, sim3) for state, graph, _ in cases]
+    assert all(0 < acc < 20 for _, acc in refs)
+    state, graph, optimize = cases[0]
+
+    def run(case):
+        return case[2](*case[0][:2], case[1], num_iterations=20)
+
+    first, eager = _recorded(lambda: run(cases[0]))
+    second, capture = _recorded(lambda: run(cases[0]))
+    assert _same_pg(first, refs[0][0]) and _same_pg(second, refs[0][0])
+    assert eager == {"pose_graph.eager_solves": 1,
+                     "pose_graph.lm_accepted": refs[0][1],
+                     "pose_graph.lm_iterations": 20}
+    assert capture == {"pose_graph.graph_captures": 1,
+                       "pose_graph.graph_replays": 1,
+                       "pose_graph.lm_accepted": refs[0][1],
+                       "pose_graph.lm_iterations": 20}
+    cache = pg_cache._SIM3_GRAPHS if sim3 else pg_cache._SE3_GRAPHS
+    assert len(cache.graphs) == 1
+    got, counters = _recorded(lambda: [run(c) for c in cases])
+    for res, (ref, _) in zip(got, refs):
+        assert _same_pg(res, ref)
+    assert counters == {"pose_graph.graph_replays": 4,
+                        "pose_graph.lm_accepted": sum(a for _, a in refs),
+                        "pose_graph.lm_iterations": 80}
+    assert not torch.equal(got[0].ts, got[1].ts)
+
+
+@pytest.mark.parametrize("sim3", [False, True])
+def test_pose_graph_replay_syncs_nothing(dev, pg_cache, sim3):
+    """A replay (copy-in, graph, copies out, the Sim(3) fold; recording on
+    and off) under ``set_sync_debug_mode("error")``."""
+    from photogrammetry_tpu_torch.utils import profiling
+
+    state, graph, optimize = _pg_case(dev, 23, 30, 5, sim3)
+    ref, _ = _pg_eager(state, graph, sim3)
+    for _ in range(2):
+        optimize(state[0], state[1], graph)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = optimize(state[0], state[1], graph)
+        with profiling.recording():
+            again = optimize(state[0], state[1], graph)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        profiling.clear()
+    assert _same_pg(res, ref) and _same_pg(again, ref)
+
+
+@pytest.mark.parametrize("mode", ["rotation", "revisit_sim3"])
+def test_close_loops_same_bits_with_and_without_the_graph_cache(
+        dev, pg_cache, monkeypatch, mode):
+    """close_loops on the card: its first call (the pose graph eager), its
+    second (captured) and third (replayed) and a call with the cache
+    emptied and held at size 0 (eager) give the same poses, costs and
+    edges."""
+    from photogrammetry_tpu_torch.sfm.loop_closure import close_loops
+
+    feats, rs, ts, kmat, fc = _revisit_scene(dev)
+
+    def run():
+        gen = torch.Generator(device=dev).manual_seed(7)
+        return close_loops(feats, rs, ts, kmat, fc, generator=gen,
+                           min_gap=3, min_matches=18, mode=mode)
+
+    runs, counters = _recorded(lambda: [run() for _ in range(3)])
+    assert counters["pose_graph.eager_solves"] == 1
+    assert counters["pose_graph.graph_captures"] == 1
+    assert counters["pose_graph.graph_replays"] == 2
+    monkeypatch.setattr(pg_cache, "MAX_GRAPHS", 0)
+    for cache in (pg_cache._SE3_GRAPHS, pg_cache._SIM3_GRAPHS):
+        cache.graphs.clear()
+    runs.append(run())
+    (rs0, ts0, info0), *rest = runs
+    assert info0["loop_edges"] and (2, 5) in info0["loop_edges"]
+    for rs_k, ts_k, info in rest:
+        assert torch.equal(torch.as_tensor(rs_k), torch.as_tensor(rs0))
+        assert torch.equal(torch.as_tensor(ts_k), torch.as_tensor(ts0))
+        assert info["loop_edges"] == info0["loop_edges"]
+        assert (info["cost"], info["initial_cost"]) == \
+            (info0["cost"], info0["initial_cost"])
 
 
 # ------------------------------ the fused steady step as CUDA graphs

@@ -245,3 +245,198 @@ def test_state_from_jax_carries_graphs():
         for a, b in zip(got, g):
             assert a.dtype == torch.from_numpy(np.asarray(b).copy()).dtype
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# ------------------------------ the CUDA-graph caches, seen from the CPU
+
+
+class _Stop(Exception):
+    pass
+
+
+def _key(monkeypatch, sim3=False, n=6, e=7, device="cpu",
+         dtype=torch.float32, edge_dtype=torch.int32, strided=False, **kw):
+    """(cache, key) of the solve that ``optimize_pose_graph`` (``_sim3``)
+    asks for on zero graphs of ``n`` nodes and ``e`` edges (the solve
+    itself stubbed out); ``strided`` hands ``ts`` over transposed."""
+    from photogrammetry_tpu_torch.utils import graphs
+
+    keys = []
+
+    def solve(cache, args, opts, max_graphs, max_seen):
+        keys.append((cache, graphs.loop_key(args, opts)))
+        raise _Stop
+
+    monkeypatch.setattr(graphs.LoopCache, "solve", solve)
+    z = torch.zeros((), dtype=dtype, device=device)
+    rs = z.new_zeros(n, 3, 3)
+    ts = z.new_zeros(3, n).T if strided else z.new_zeros(n, 3)
+    common = dict(edges=torch.zeros(e, 2, dtype=edge_dtype, device=device),
+                  z_rs=z.new_zeros(e, 3, 3), z_ts=z.new_zeros(e, 3),
+                  weights=z.new_ones(e))
+    with pytest.raises(_Stop):
+        if sim3:
+            pg.optimize_pose_graph_sim3(
+                rs, ts, pg.PoseGraphSim3(z_ss=z.new_ones(e), **common), **kw)
+        else:
+            pg.optimize_pose_graph(rs, ts, pg.PoseGraph(**common), **kw)
+    return keys[0]
+
+
+_PG_CHANGES = {
+    "device": dict(device="meta"),
+    "dtype": dict(dtype=torch.float64),
+    "nodes": dict(n=7),
+    "edges": dict(e=8),
+    "edge_dtype": dict(edge_dtype=torch.int64),
+    "strides": dict(strided=True),
+    "num_iterations": dict(num_iterations=21),
+    "init_lambda": dict(init_lambda=1e-3),
+}
+
+
+@pytest.mark.parametrize("sim3", [False, True])
+@pytest.mark.parametrize("name", sorted(_PG_CHANGES))
+def test_pose_graph_key_separates_what_the_capture_bakes_in(monkeypatch,
+                                                           name, sim3):
+    """Each input layout and option that the captured loop bakes in,
+    changed alone, gives another key; the same call gives the same key,
+    and so does the free-node mask given as the default it is (its values
+    are copied in, not baked in).  SE(3) and Sim(3) keep separate caches."""
+    base = _key(monkeypatch, sim3, num_iterations=20)
+    cache = base[0]
+    assert cache is (pg._SIM3_GRAPHS if sim3 else pg._SE3_GRAPHS)
+    assert _key(monkeypatch, sim3, num_iterations=20) == base
+    mask = torch.ones(6)
+    mask[0] = 0.0
+    assert _key(monkeypatch, sim3, num_iterations=20,
+                fixed_nodes=mask) == base
+    changed = dict(dict(num_iterations=20), **_PG_CHANGES[name])
+    got = _key(monkeypatch, sim3, **changed)
+    assert got[0] is cache and got[1] != base[1]
+
+
+def _loop_problem(sim3):
+    """The Sim(3) drift circle at 12 nodes (its SE(3) or Sim(3) graph) as
+    the port's tensors: (rs, ts, graph)."""
+    rs, ts, _, g3, g7 = _sim3_drift_problem(n=12)
+    return _t(rs), _t(ts), state_from_jax(g7 if sim3 else g3, device="cpu")
+
+
+@pytest.mark.parametrize("sim3", [False, True])
+def test_pose_graph_on_the_cpu_never_captures(sim3):
+    """CPU tensors take the eager loop on every call: nothing is seen,
+    captured or replayed, the graph counters stay absent, and the result
+    is the loop's own, the same bits on a repeated call."""
+    from photogrammetry_tpu_torch.utils import profiling
+
+    rs, ts, graph = _loop_problem(sim3)
+    cache = pg._SIM3_GRAPHS if sim3 else pg._SE3_GRAPHS
+    optimize = pg.optimize_pose_graph_sim3 if sim3 else pg.optimize_pose_graph
+    seen, cached = dict(cache.seen), dict(cache.graphs)
+    profiling.clear()
+    with profiling.recording():
+        got = [optimize(rs, ts, graph, num_iterations=6) for _ in range(3)]
+    counters = profiling.read_counters()
+    profiling.clear()
+    assert (cache.seen, cache.graphs) == (seen, cached)
+    assert counters["pose_graph.lm_iterations"] == 18
+    assert not {"pose_graph.graph_replays", "pose_graph.graph_captures",
+                "pose_graph.eager_solves"} & set(counters)
+    fn = pg._fixed(12, None, ts)
+    state = (rs, ts, ts.new_zeros(12)) if sim3 else (rs, ts)
+    ref, cost, cost0, accepted = cache.loop(
+        *state, graph, fn, num_iterations=6, init_lambda=1e-4, tally=True)
+    assert counters["pose_graph.lm_accepted"] == 3 * int(accepted) > 0
+    for res in got:
+        assert torch.equal(res.rs, ref[0])
+        if sim3:
+            assert torch.equal(res.scales, torch.exp(ref[2]))
+            assert torch.equal(res.ts, ref[1] / res.scales[:, None])
+        else:
+            assert torch.equal(res.ts, ref[1])
+        assert torch.equal(res.cost, cost)
+        assert torch.equal(res.initial_cost, cost0)
+
+
+def _closure_form(rs, ts, graph, sim3, num_iterations, fixed_nodes):
+    """The LM as ``optimize_pose_graph`` (``_sim3``) ran it before its loop
+    became a function of tensors: closures over the graph, the loop
+    written out.  (rs, ts, scales or None, cost, initial cost, accepted)."""
+    n = rs.shape[0]
+    fn = pg._fixed(n, fixed_nodes, ts)
+    ii = graph.edges[:, 0].long()
+    jj = graph.edges[:, 1].long()
+    w = graph.weights
+    dim = 7 if sim3 else 6
+
+    def cost_of(state):
+        if sim3:
+            rs, ts, gs = state
+            r = pg._sim3_edge_residual(rs[ii], ts[ii], gs[ii], rs[jj],
+                                       ts[jj], gs[jj], graph.z_rs,
+                                       graph.z_ts, graph.z_ss)
+        else:
+            rs, ts = state
+            r = pg._edge_residual(rs[ii], ts[ii], rs[jj], ts[jj], graph.z_rs,
+                                  graph.z_ts)
+        return 0.5 * (w[:, None] * r * r).sum()
+
+    def step(state, lam):
+        terms = (pg._sim3_edge_terms(*state, graph) if sim3
+                 else pg._edge_terms(*state, graph))
+        delta = pg._lm_step(*terms, ii, jj, w, fn, lam, dim)
+        dr, dt = pg.se3_exp(delta[:, :6])
+        out = (dr @ state[0], pg._mv(dr, state[1]) + dt)
+        return out + (state[2] + delta[:, 6],) if sim3 else out
+
+    state = (rs, ts, ts.new_zeros(n)) if sim3 else (rs, ts)
+    cost0 = cost_of(state)
+    cost = cost0
+    lam = torch.full_like(cost0, 1e-4)
+    accepted = 0
+    for _ in range(num_iterations):
+        prop = step(state, lam)
+        new_cost = cost_of(prop)
+        accept = new_cost < cost
+        accepted += int(accept)
+        state = tuple(torch.where(accept, p, s) for p, s in zip(prop, state))
+        cost = torch.where(accept, new_cost, cost)
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-10),
+                          torch.clamp(lam * 4.0, max=1e8))
+    if not sim3:
+        return state[0], state[1], None, cost, cost0, accepted
+    scales = torch.exp(state[2])
+    return (state[0], state[1] / scales[:, None], scales, cost, cost0,
+            accepted)
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+@pytest.mark.parametrize("sim3", [False, True])
+def test_pose_graph_same_bits_as_the_closure_form(sim3, fixed):
+    """``optimize_pose_graph`` / ``_sim3`` on the CPU give the bits of the
+    loop as it was written before it became a function of tensors, and
+    count the same accepted steps and iterations."""
+    from photogrammetry_tpu_torch.utils import profiling
+
+    rs, ts, graph = _loop_problem(sim3)
+    fixed_nodes = None
+    if fixed:
+        fixed_nodes = torch.ones(12)
+        fixed_nodes[[0, 5]] = 0.0
+    want = _closure_form(rs, ts, graph, sim3, 15, fixed_nodes)
+    optimize = pg.optimize_pose_graph_sim3 if sim3 else pg.optimize_pose_graph
+    profiling.clear()
+    with profiling.recording():
+        got = optimize(rs, ts, graph, num_iterations=15,
+                       fixed_nodes=fixed_nodes)
+    counters = profiling.read_counters()
+    profiling.clear()
+    assert torch.equal(got.rs, want[0]) and torch.equal(got.ts, want[1])
+    if sim3:
+        assert torch.equal(got.scales, want[2])
+    assert torch.equal(got.cost, want[3])
+    assert torch.equal(got.initial_cost, want[4])
+    assert counters == {"pose_graph.lm_accepted": want[5],
+                        "pose_graph.lm_iterations": 15}
+    assert 0 < want[5] < 15
