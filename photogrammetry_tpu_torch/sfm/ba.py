@@ -272,21 +272,15 @@ def _lm_loop(state: BAState, prob: BAProblem, fixed_cameras, prior_rs,
 #
 # ``utils.graphs.LoopCache``: a CUDA solve whose key (the input layouts, the
 # device and every Python argument) was seen before replays a capture of
-# ``_lm_loop``.  At most MAX_GRAPHS captures are kept and MAX_SEEN keys
-# seen once remembered.
+# ``_lm_loop``.
 
-MAX_GRAPHS = 8
-MAX_SEEN = 64
 _CACHE = graphs.LoopCache(_lm_loop, "ba")
-_GRAPHS = _CACHE.graphs
-_SEEN = _CACHE.seen
-_graph_key = graphs.loop_key
 
 
 def _solve(args, opts):
     """(state, cost, initial cost) of the LM loop: eager, captured or
     replayed, as the device, the capture state and the cache decide."""
-    return _CACHE.solve(args, opts, MAX_GRAPHS, MAX_SEEN)
+    return _CACHE.solve(args, opts)
 
 
 def bundle_adjust(state: BAState, prob: BAProblem,

@@ -28,17 +28,17 @@ CUDA-graph capture of a steady frame serves every frame.
 
 A steady frame (the map exists) is one function, ``_steady_frame``:
 chaining (``_track_frame``), pose (``_localize_frame``) and the map update
-(``_map_frame``).  The staged loop calls it frame by frame; with
-``SfmConfig.fused_steady_steps`` the frames from t = 2 on go through
-``_SteadyStep``, the same function eagerly on the CPU and as a captured
-CUDA graph on the card (``utils.graphs.SegmentedGraph``: cut into
-segments at the ``eigh`` / ``svd`` calls, which read their error flag back
-to the host; replayed segment after segment, each cut's call made
-between two), captured once for each (configuration, frame count,
-device, plain) and reused across ``run_incremental_sfm_robust``'s
-restarts.  ``run_incremental_sfm_fused`` runs the frames after the
-bootstrap through the same step (``pose_init="scan"``).  All three give
-the same bits.
+(``_map_frame``).  One loop (``_run``) serves both entries and calls it
+frame by frame; with ``SfmConfig.fused_steady_steps`` the frames from
+t = 2 on go through ``_SteadyStep``, the same function eagerly on the CPU
+and as a captured CUDA graph on the card (``utils.graphs.GraphCall`` over
+a ``SegmentedGraph``: cut into segments at the ``eigh`` / ``svd`` calls,
+which read their error flag back to the host; replayed segment after
+segment, each cut's call made between two), captured once for each
+(configuration, frame count, device, plain) and reused across
+``run_incremental_sfm_robust``'s restarts.  ``run_incremental_sfm_fused``
+is the same loop with the step on, its frames after the bootstrap
+labelled ``pose_init="scan"``.  All three give the same bits.
 
 With ``SfmConfig.precompute_matching`` every (t, t-1) and (t, t-2) match
 and its epipolar gate is computed once after the frontend
@@ -102,7 +102,7 @@ from photogrammetry_tpu_torch.store.checkpoint import (
     load_checkpoint, save_checkpoint,
 )
 from photogrammetry_tpu_torch.utils.graphs import (
-    SegmentedGraph, allow_sync, tree_leaves, tree_map,
+    GraphCall, SegmentedGraph, allow_sync, capture_stream,
 )
 from photogrammetry_tpu_torch.utils.indexing import put_row, take_row
 from photogrammetry_tpu_torch.utils.profiling import span
@@ -603,24 +603,27 @@ class _SteadyStep:
     ``generator``.
 
     On the CPU the step runs eagerly.  On CUDA the first call runs it
-    eagerly on a side stream (the warm-up a capture needs: library handles
-    and workspaces, kernel loads; its result is that frame's) and then
-    captures it as a ``SegmentedGraph`` over static copies of its inputs;
-    every later call copies its inputs into them (feats, pm and kmat only
-    when they are other tensors than last time) and replays, returning
-    copies of the outputs, which the next replay overwrites.  A capture
-    that fails raises.  ``warm_up_ms`` and ``capture_ms``: the first
-    call's two parts by the host clock, each ending in a synchronize;
-    ``graph``: the capture (``segments``, ``cuts``)."""
+    eagerly on the capture stream (the warm-up a capture needs: library
+    handles and workspaces, kernel loads; its result is that frame's) and
+    then captures it (``utils.graphs.GraphCall``: a ``SegmentedGraph`` over
+    static copies of its inputs); every later call copies its inputs in
+    (feats, pm and kmat only when they are other tensors than last time),
+    replays and returns copies of the outputs.  A capture that fails
+    raises.  ``warm_up_ms`` and ``capture_ms``: the first call's two parts
+    by the host clock, each ending in a synchronize; ``graph``: the
+    capture (``segments``, ``cuts``), None before it."""
 
     def __init__(self, config: SfmConfig, device: torch.device, plain: bool):
         self.config = config
         self.device = device
         self.plain = plain
         self.generator = torch.Generator(device=device)
-        self.graph: SegmentedGraph | None = None
+        self.call: GraphCall | None = None
         self.warm_up_ms = self.capture_ms = None
-        self._inputs = self._outputs = self._loaded = None
+
+    @property
+    def graph(self) -> SegmentedGraph | None:
+        return None if self.call is None else self.call.graph
 
     def _step(self, feats, pm, kmat, carry, t):
         carry, cost, _ = _steady_frame(self.generator, feats, pm, kmat, carry,
@@ -631,40 +634,25 @@ class _SteadyStep:
         with span("sfm.steady_step", t=t):
             if self.device.type != "cuda":
                 return self._step(feats, pm, kmat, carry, t)
-            if self.graph is None:
+            if self.call is None:
                 return self._warm_up_and_capture(feats, pm, kmat, carry, t)
-            run = (feats, pm, kmat)
-            if self._loaded is None or any(
-                    a is not b for a, b in zip(self._loaded, run)):
-                for dst, src in zip(tree_leaves(self._inputs[:3]),
-                                    tree_leaves(run)):
-                    dst.copy_(src)
-                self._loaded = run
-            for dst, src in zip(tree_leaves(self._inputs[3:]),
-                                tree_leaves((carry, t))):
-                dst.copy_(src)
-            self.graph.replay()
-            return tree_map(torch.clone, self._outputs)
+            return self.call((feats, pm, kmat, carry, t))
 
-    def _warm_up_and_capture(self, feats, pm, kmat, carry, t):
+    def _warm_up_and_capture(self, *args):
         dev = self.device
         with allow_sync():
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        stream = torch.cuda.Stream(dev)
+        stream = capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            out = self._step(feats, pm, kmat, carry, t)
+            out = self._step(*args)
         torch.cuda.current_stream(dev).wait_stream(stream)
-        inputs = tree_map(torch.clone, (feats, pm, kmat, carry, t))
         with allow_sync():
             torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
-        graph = SegmentedGraph(dev, generators=(self.generator,),
-                               stream=stream)
-        self._outputs = graph.capture(self._step, *inputs)
-        self.graph, self._inputs, self._loaded = graph, inputs, (feats, pm,
-                                                                 kmat)
+        self.call = GraphCall(self._step, args, generators=(self.generator,),
+                              reuse=3)
         with allow_sync():
             torch.cuda.synchronize(dev)
         self.warm_up_ms = (t1 - t0) * 1e3
@@ -821,14 +809,23 @@ def run_incremental_sfm(frames, k, config: SfmConfig | None = None,
     ``export_sfm_result`` finishes it.
     """
     with span("sfm.sequence", frames=len(frames)):
-        return _run_staged(frames, k, config, seed, checkpoint_path,
-                           checkpoint_every, resume, export, device, plain)
+        return _run(frames, k, config, seed, device, plain, checkpoint_path,
+                    checkpoint_every, resume, export)
 
 
-def _run_staged(frames, k, config, seed, checkpoint_path, checkpoint_every,
-                resume, export, device, plain):
-    """``run_incremental_sfm``'s body."""
+def _run(frames, k, config, seed, device, plain, checkpoint_path=None,
+         checkpoint_every=4, resume=True, export=True, scan=False):
+    """The SfM loop of both entries.  ``scan``: ``run_incremental_sfm_fused``'s
+    run: every steady frame a step, labelled ``"scan"``; no diagnostics;
+    the displacement read whatever ``read_free`` says, and not kept in
+    the deferred frames' info; the bootstrap support read at once."""
     config = config or SfmConfig()
+    if scan:
+        if config.mesh is not None:
+            raise ValueError("run_incremental_sfm_fused is single-device: "
+                             "SfmConfig.mesh must be None")
+        config = replace(config, fused_steady_steps=True,
+                         collect_diagnostics=False, read_free=False)
     if not export and (not config.read_free or config.collect_diagnostics
                        or checkpoint_path):
         raise ValueError("export=False needs read_free=True, "
@@ -880,7 +877,8 @@ def _run_staged(frames, k, config, seed, checkpoint_path, checkpoint_every,
                 (table, rs, ts, kp_track_prev2), cost = step(
                     feats, pm, kmat, carry, t_dev)
                 costs.append(cost)
-                frame_info.append({"frame": t, "pose_init": "fused_step"})
+                frame_info.append({"frame": t, "pose_init":
+                                   "scan" if scan else "fused_step"})
                 continue
             (table, rs, ts, kp_track_prev), cost, diag = _steady_frame(
                 gen, feats, pm, kmat, carry, t_dev, config, plain,
@@ -899,7 +897,8 @@ def _run_staged(frames, k, config, seed, checkpoint_path, checkpoint_every,
             trigger = force
             if not config.read_free:
                 disp = _bootstrap_displacement(table, t)
-                info["bootstrap_disp_px"] = round(disp, 1)
+                if not scan:
+                    info["bootstrap_disp_px"] = round(disp, 1)
                 trigger = disp >= config.bootstrap_min_disp_px or force
             if not trigger:
                 info.update(pose_init="deferred")
@@ -913,7 +912,10 @@ def _run_staged(frames, k, config, seed, checkpoint_path, checkpoint_every,
                 gen, table, rs, ts, kmat, config, t, num_frames, plain)
             map_ready = True
             info.update(pose_init="bootstrap", bootstrap_pair=(0, t))
-            pending_support = (info, support)
+            if scan:
+                info["bootstrap_support"] = int(support)
+            else:
+                pending_support = (info, support)
             table, rs, ts, cost = _map_frame(table, rs, ts, kmat, t_dev,
                                              config, plain, config.mesh)
             costs.append(cost)
@@ -986,71 +988,11 @@ def run_incremental_sfm_fused(frames, k, config: SfmConfig | None = None,
     fused steady step (``pose_init="scan"``), with no host read between
     them; the same bits as ``run_incremental_sfm`` with the same seed.
 
-    The deferral and the bootstrap (with the bootstrap frame's own
-    triangulation, windowed BA, rescale and prune) run on the host as in
-    the staged loop, reading each deferred frame's displacement and the
-    bootstrap support; then the steady frames, frame after frame, through
-    ``steady_step`` (on the card the step's graph segments, replayed: the
-    ``eigh`` / ``svd`` cuts keep the remainder from being one graph); then
-    the final BA.  No checkpoint and no diagnostics in this mode; needs
-    ``mesh=None``.  ``device`` and ``plain`` as for
-    ``run_incremental_sfm``.
+    ``run_incremental_sfm``'s loop with the step on: the deferral reads
+    each deferred frame's displacement whatever ``read_free`` says, and
+    the bootstrap frame's info holds its support, read at the bootstrap.
+    No checkpoint and no diagnostics in this mode; needs ``mesh=None``.
+    ``device`` and ``plain`` as for ``run_incremental_sfm``.
     """
     with span("sfm.sequence", frames=len(frames)):
-        return _run_fused(frames, k, config, seed, device, plain)
-
-
-def _run_fused(frames, k, config, seed, device, plain):
-    """``run_incremental_sfm_fused``'s body."""
-    config = config or SfmConfig()
-    if config.mesh is not None:
-        raise ValueError("run_incremental_sfm_fused is single-device: "
-                         "SfmConfig.mesh must be None")
-    dev = resolve_device(device)
-    num_frames = len(frames)
-    step = steady_step(config, num_frames, dev, plain)
-    gen = step.generator
-    gen.manual_seed(seed)
-    kmat, feats, pm, table, rs, ts = _sequence_inputs(frames, k, config, gen,
-                                                      dev, plain)
-    frame_ids = torch.arange(num_frames, device=dev)
-    costs = []
-    frame_info = []
-    first = frame_features(feats, 0)
-    table = start_tracks(table, 0, first.xy, first.points.mask)
-    map_ready = False
-    kp_track_prev2 = None
-    t = 1
-    # host prefix: deferral and bootstrap, the only host decisions
-    while t < num_frames and not map_ready:
-        t_dev = frame_ids[t]
-        table, kp_track_prev, _ = _track_frame(
-            gen, feats, pm, frame_features(feats, t_dev), table,
-            kp_track_prev2, t_dev, config, plain, False)
-        force = (t == num_frames - 1) or (t >= config.bootstrap_max_defer)
-        if (_bootstrap_displacement(table, t) >= config.bootstrap_min_disp_px
-                or force):
-            rs, ts, table, support = _bootstrap_map(
-                gen, table, rs, ts, kmat, config, t, num_frames, plain)
-            map_ready = True
-            frame_info.append({"frame": t, "pose_init": "bootstrap",
-                               "bootstrap_pair": (0, t),
-                               "bootstrap_support": int(support)})
-            table, rs, ts, cost = _map_frame(table, rs, ts, kmat, t_dev,
-                                             config, plain)
-            costs.append(cost)
-        else:
-            frame_info.append({"frame": t, "pose_init": "deferred"})
-        kp_track_prev2 = kp_track_prev
-        t += 1
-    # the steady frames: the step frame after frame, no host read between
-    if map_ready:
-        carry = (table, rs, ts, kp_track_prev2)
-        for s in range(t, num_frames):
-            carry, cost = step(feats, pm, kmat, carry, frame_ids[s])
-            costs.append(cost)
-            frame_info.append({"frame": s, "pose_init": "scan"})
-        table, rs, ts, _ = carry
-    table, rs, ts = _final_ba(table, rs, ts, kmat, config, plain, costs)
-    return export_sfm_result(DeviceSfmResult(rs, ts, table, costs,
-                                             frame_info, None))
+        return _run(frames, k, config, seed, device, plain, scan=True)

@@ -196,11 +196,7 @@ def _lm(cost_of, step, state, init_lambda: float, num_iterations: int):
 # ``utils.graphs.LoopCache``: on CUDA a solve whose key (the input layouts,
 # the device, the iteration count and λ) was seen before replays a capture
 # of its loop, which takes tensors alone: the state, the graph and the
-# free-node mask.  At most MAX_GRAPHS captures a loop are kept and MAX_SEEN
-# keys seen once remembered.
-
-MAX_GRAPHS = 8
-MAX_SEEN = 64
+# free-node mask.
 
 
 def _solve(cache: graphs.LoopCache, args, num_iterations: int,
@@ -212,7 +208,7 @@ def _solve(cache: graphs.LoopCache, args, num_iterations: int,
     opts = dict(num_iterations=int(num_iterations),
                 init_lambda=float(init_lambda))
     with span("pose_graph.solve", iterations=num_iterations):
-        out = cache.solve(args, opts, MAX_GRAPHS, MAX_SEEN)
+        out = cache.solve(args, opts)
         count("pose_graph.lm_iterations", num_iterations)
     return out
 

@@ -21,8 +21,10 @@ A kernel wrapper counts its launches with ``count_launch``.  A capture
 runs nothing, so a launch recorded during one is counted at each replay,
 as an eager call of the function would count it.
 
-``LoopCache`` keeps the captures of a fixed-count device loop (an LM
-solve) by the layout of its inputs, and replays them on CUDA.
+``GraphCall`` captures a function over static input buffers and replays
+it, copying the inputs in and the outputs out: the fused SfM step
+(``sfm.incremental._SteadyStep``) is one, and ``LoopCache`` keeps one for
+each input layout of a fixed-count device loop (an LM solve).
 """
 from __future__ import annotations
 
@@ -182,20 +184,76 @@ class SegmentedGraph:
             fn.launches += 1
 
 
-# -- fixed-count loops as cached CUDA graphs ----------------------------------
-#
-# A CUDA solve whose key was seen before replays a capture of the loop: the
-# same kernels on the same values, launched as one graph.  The key holds all
-# that the capture bakes in: each input tensor's shape, strides and dtype
-# (None where not given), the device and the Python arguments.  A key is
-# captured on its second call, so one-off shapes pay no capture.  At most
-# ``max_graphs`` captures are kept: a key that finds the cache full runs
-# eagerly and evicts the least recently replayed capture, so that its next
-# call captures.  The keys seen once are remembered up to ``max_seen``.
+# -- captured calls and fixed-count loops as cached CUDA graphs ---------------
 
 # device -> the one capture stream: a library workspace allocated for a
-# stream is kept for the process, so every cache's captures share one
+# stream is kept for the process, so every capture shares one
 _STREAMS: dict = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The capture stream of the CUDA ``device`` (without an index, the
+    current device), made at its first use."""
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    stream = _STREAMS.get(device)
+    if stream is None:
+        stream = _STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+class GraphCall:
+    """``fn(*args)`` captured once, on the device's capture stream, over
+    static input buffers (clones of the first call's tensors; ``args`` a
+    tuple of nests of tuples, NamedTuples and None) and replayed.
+
+    A call copies its arguments into the buffers, replays the capture and
+    returns clones of the outputs.  The first ``reuse`` arguments are
+    copied only when they are other objects than at the last call (the
+    first call's are in the buffers); the rest at every call.  A call
+    from another stream than the last waits for the last.  ``generators``:
+    those the capture draws from, each replay advancing them; ``graph``:
+    the ``SegmentedGraph``."""
+
+    def __init__(self, fn, args: tuple, generators=(), reuse: int = 0):
+        self.device = tree_leaves(args)[0].device
+        self.inputs = tree_map(torch.clone, args)
+        self.reuse = reuse
+        self._held = args[:reuse]
+        self.graph = SegmentedGraph(self.device, generators,
+                                    capture_stream(self.device))
+        self.outputs = self.graph.capture(fn, *self.inputs)
+        self._last_stream = torch.cuda.current_stream(self.device)
+
+    def replay(self, args: tuple):
+        """Copy ``args`` in and replay; returns the output buffers, which
+        the next replay overwrites."""
+        cur = torch.cuda.current_stream(self.device)
+        if cur != self._last_stream:
+            cur.wait_stream(self._last_stream)
+            self._last_stream = cur
+        n = self.reuse
+        if any(a is not b for a, b in zip(args[:n], self._held)):
+            self._load(self.inputs[:n], args[:n])
+            self._held = args[:n]
+        self._load(self.inputs[n:], args[n:])
+        self.graph.replay()
+        return self.outputs
+
+    @staticmethod
+    def _load(dst, src) -> None:
+        for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+            d.copy_(s)
+
+    def __call__(self, args: tuple):
+        return tree_map(torch.clone, self.replay(args))
+
+
+# A CUDA solve whose key was seen before replays a capture of its loop:
+# the same kernels on the same values, launched as one graph.  The key
+# holds all that the capture bakes in: each input tensor's shape, strides
+# and dtype (None where not given), the device and the Python arguments.
+# A key is captured on its second call, so one-off shapes pay no capture.
 
 
 def _layouts(tree) -> list:
@@ -214,44 +272,8 @@ def loop_key(args, opts) -> tuple:
             tuple(sorted(opts.items())))
 
 
-class _LoopGraph:
-    """One captured loop: static input buffers (``empty_like`` the caller's
-    tensors), the ``SegmentedGraph`` (one segment: the loop reads nothing
-    back) and the buffers its replays write."""
-
-    def __init__(self, loop, args, opts, stream):
-        dev = tree_leaves(args)[0].device
-        self.inputs = tree_map(torch.empty_like, args)
-        self._load(args)
-        self.graph = SegmentedGraph(dev, stream=stream)
-        self.outputs = self.graph.capture(
-            functools.partial(loop, tally=True, **opts), *self.inputs)
-        self.last_stream = torch.cuda.current_stream(dev)
-
-    def _load(self, args):
-        for dst, src in zip(tree_leaves(self.inputs), tree_leaves(args)):
-            dst.copy_(src)
-
-    def __call__(self, args, accepted_counter: str):
-        """Copy ``args`` in, replay, and return copies of the loop's
-        outputs but its tally: the next replay overwrites the buffers.
-        Recording, the tally goes to ``accepted_counter`` as a copy too.
-        A call on another stream than the last (the fused step's warm-up
-        runs on its own) waits for the last."""
-        cur = torch.cuda.current_stream(self.last_stream.device)
-        if cur != self.last_stream:
-            cur.wait_stream(self.last_stream)
-            self.last_stream = cur
-        self._load(args)
-        self.graph.replay()
-        *outputs, accepted = self.outputs
-        if profiling.is_recording():
-            profiling.count(accepted_counter, accepted.clone())
-        return tree_map(torch.clone, tuple(outputs))
-
-
 class LoopCache:
-    """The captures of one fixed-count loop, by key.
+    """The captures of one fixed-count loop, by key, each a ``GraphCall``.
 
     ``loop(*args, tally=False, **opts)`` takes tensors (a nest of tuples,
     NamedTuples and None) and Python options, reads nothing back to the
@@ -260,29 +282,34 @@ class LoopCache:
     each step's accept flag in ``<prefix>.lm_accepted``.  Recording
     (``utils.profiling``), a CUDA solve counts ``<prefix>.graph_replays``
     (a capture's own replay included), ``<prefix>.graph_captures`` and
-    ``<prefix>.eager_solves`` (CUDA solves run eagerly)."""
+    ``<prefix>.eager_solves`` (CUDA solves run eagerly).
+
+    At most ``MAX_GRAPHS`` captures are kept: a key that finds the cache
+    full runs eagerly and evicts the least recently replayed capture, so
+    that its next call captures.  The keys seen once are remembered up to
+    ``MAX_SEEN``."""
+
+    MAX_GRAPHS = 8
+    MAX_SEEN = 64
 
     def __init__(self, loop, prefix: str):
         self.loop = loop
-        self.graphs: OrderedDict = OrderedDict()    # key -> _LoopGraph
+        self.graphs: OrderedDict = OrderedDict()    # key -> GraphCall
         self.seen: OrderedDict = OrderedDict()      # key -> None
         self.replays = f"{prefix}.graph_replays"
         self.captures = f"{prefix}.graph_captures"
         self.eager = f"{prefix}.eager_solves"
         self.accepted = f"{prefix}.lm_accepted"
 
-    def _capture(self, key, args, opts):
-        """Capture the loop into the cache, on the device's capture stream,
-        and replay it for this call.  The key's first call ran eagerly: the
-        library handles the capture needs exist."""
-        dev = tree_leaves(args)[0].device
-        stream = _STREAMS.get(dev)
-        if stream is None:
-            stream = _STREAMS[dev] = torch.cuda.Stream(dev)
-        entry = self.graphs[key] = _LoopGraph(self.loop, args, opts, stream)
-        return entry(args, self.accepted)
+    def _replay(self, call: GraphCall, args):
+        """The replay's outputs but its tally, as copies; recording, the
+        tally goes to the accept counter as a copy too."""
+        *outputs, accepted = call.replay(args)
+        if profiling.is_recording():
+            profiling.count(self.accepted, accepted.clone())
+        return tree_map(torch.clone, tuple(outputs))
 
-    def solve(self, args, opts, max_graphs: int, max_seen: int):
+    def solve(self, args, opts):
         """The loop's outputs but its tally: eager, captured or replayed, as
         the device, the capture state and the cache decide."""
         first = tree_leaves(args)[0]
@@ -293,19 +320,23 @@ class LoopCache:
             profiling.count(self.eager, 1)
             return self.loop(*args, **opts)[:-1]
         key = loop_key(args, opts)
-        entry = self.graphs.get(key)
-        if entry is not None:
+        call = self.graphs.get(key)
+        if call is not None:
             self.graphs.move_to_end(key)
             profiling.count(self.replays, 1)
-            return entry(args, self.accepted)
-        if key in self.seen and len(self.graphs) < max_graphs:
+            return self._replay(call, args)
+        if key in self.seen and len(self.graphs) < self.MAX_GRAPHS:
+            # the key's first call ran eagerly: the library handles the
+            # capture needs exist
             profiling.count(self.captures, 1)
             profiling.count(self.replays, 1)
-            return self._capture(key, args, opts)
+            call = self.graphs[key] = GraphCall(
+                functools.partial(self.loop, tally=True, **opts), args)
+            return self._replay(call, args)
         profiling.count(self.eager, 1)
         if key not in self.seen:
             self.seen[key] = None
-            if len(self.seen) > max_seen:
+            if len(self.seen) > self.MAX_SEEN:
                 self.seen.popitem(last=False)
         elif self.graphs:
             # the cache is full: the evicted capture's last replay may still

@@ -15,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.kernels.schur import schur_products_pallas
 from photogrammetry_tpu.sfm import ba as jba
 from photogrammetry_tpu_torch.convert import state_from_jax
 from photogrammetry_tpu_torch.kernels import schur
 from photogrammetry_tpu_torch.sfm import ba
+from photogrammetry_tpu_torch.utils import graphs
 from test_ba import make_problem
 
 POSE_ATOL = 1e-4
@@ -167,13 +169,13 @@ def test_bundle_adjust_on_the_cpu_never_captures(problem):
     from photogrammetry_tpu_torch.utils import profiling
 
     st, pr = _port(problem)
-    seen, cached = dict(ba._SEEN), dict(ba._GRAPHS)
+    seen, cached = dict(ba._CACHE.seen), dict(ba._CACHE.graphs)
     profiling.clear()
     with profiling.recording():
         got = [ba.bundle_adjust(st, pr, num_iterations=6) for _ in range(3)]
     counters = profiling.read_counters()
     profiling.clear()
-    assert (ba._SEEN, ba._GRAPHS) == (seen, cached)
+    assert (ba._CACHE.seen, ba._CACHE.graphs) == (seen, cached)
     assert counters["ba.lm_iterations"] == 18
     assert not {"ba.graph_replays", "ba.graph_captures",
                 "ba.eager_solves"} & set(counters)
@@ -206,7 +208,7 @@ def _key(monkeypatch, state, prob, **kw):
     keys = []
 
     def solve(args, opts):
-        keys.append(ba._graph_key(args, opts))
+        keys.append(graphs.loop_key(args, opts))
         return args[0], args[1].k[0, 0], args[1].k[0, 0]
 
     monkeypatch.setattr(ba, "_solve", solve)

@@ -24,6 +24,7 @@ import types
 import numpy as np
 import pytest
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.cli import capture as jcapture
 from photogrammetry_tpu.io import blendfile as jblend
 from photogrammetry_tpu.io import reference_pickle as jpickle

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.kernels.brief_pack import brief_bits_packed
 from photogrammetry_tpu.kernels.hamming import hamming_distance_matrix_pallas
 from photogrammetry_tpu.ops.brief import brief_bits as jax_brief

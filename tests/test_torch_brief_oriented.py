@@ -29,6 +29,7 @@ import pytest
 import torch
 from scipy import ndimage
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.ops import brief as jbrief
 from photogrammetry_tpu.sfm.frontend import FrontendConfig as JaxConfig
 from photogrammetry_tpu.sfm.frontend import make_pairs as jax_make_pairs

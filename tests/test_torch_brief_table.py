@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.ops.brief import gaussian_pairs as jax_pairs
 from photogrammetry_tpu.sfm import frontend as jfront
 from photogrammetry_tpu_torch.ops.brief import gaussian_pairs

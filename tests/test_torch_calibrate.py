@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.ops import calibrate as jcal
 from photogrammetry_tpu.ops import dewarp as jdewarp
 from photogrammetry_tpu_torch.cli import calibrate_dewarp

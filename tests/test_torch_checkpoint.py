@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.sfm.tracks import TrackTable as JaxTable
 from photogrammetry_tpu.store import checkpoint as jck
 from photogrammetry_tpu_torch.cli import run_sfm
@@ -30,17 +31,6 @@ from photogrammetry_tpu_torch.synth.star_scene import (
 CFG = inc.SfmConfig(frontend=FrontendConfig(
     detection_threshold=20.0, max_keypoints=256, reduction="nms",
     suppression_radius=4.0, hamming_threshold=80), collect_diagnostics=False)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs in several worker processes on a
-    few cores, where the port's many small CPU ops slow down by an order
-    of magnitude when every process also starts a thread per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

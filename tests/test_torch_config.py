@@ -9,6 +9,7 @@ import json
 
 import pytest
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu import config as jcfg
 from photogrammetry_tpu_torch import config as cfg
 from photogrammetry_tpu_torch.convert import JAX_ONLY_KEYS

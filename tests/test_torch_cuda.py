@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu_torch.kernels import (
     brief_pack, fast_stencil, hamming, remap, schur,
 )
@@ -911,12 +912,12 @@ def ba_cache():
     from photogrammetry_tpu_torch.sfm import ba
 
     torch.cuda.synchronize()
-    ba._GRAPHS.clear()
-    ba._SEEN.clear()
+    ba._CACHE.graphs.clear()
+    ba._CACHE.seen.clear()
     yield ba
     torch.cuda.synchronize()
-    ba._GRAPHS.clear()
-    ba._SEEN.clear()
+    ba._CACHE.graphs.clear()
+    ba._CACHE.seen.clear()
 
 
 @pytest.mark.parametrize("key", sorted(_SFM_KEYS))
@@ -936,7 +937,7 @@ def test_ba_graph_replay_bit_identical(dev, ba_cache, key):
     assert all(_same_ba(ba.bundle_adjust(cases[0][0], cases[0][1],
                                          **cases[0][2]), refs[0])
                for _ in range(2))
-    assert len(ba._GRAPHS) == 1
+    assert len(ba._CACHE.graphs) == 1
     profiling.clear()
     with profiling.recording():
         got = [ba.bundle_adjust(st, pr, **kw) for st, pr, kw in cases]
@@ -984,7 +985,7 @@ def test_ba_inside_a_capture_runs_eagerly(dev, ba_cache):
     graph = SegmentedGraph(dev)
     out = graph.capture(lambda s, p: ba_cache.bundle_adjust(s, p, **kw),
                         st, pr)
-    assert graph.segments == 1 and len(ba_cache._GRAPHS) == 1
+    assert graph.segments == 1 and len(ba_cache._CACHE.graphs) == 1
     graph.replay()
     assert _same_ba(out, ref)
 
@@ -992,11 +993,12 @@ def test_ba_inside_a_capture_runs_eagerly(dev, ba_cache):
 def test_ba_graph_cache_bounded(dev, ba_cache, monkeypatch):
     """A key that finds the cache full runs eagerly and evicts the least
     recently replayed capture; its next call captures."""
-    monkeypatch.setattr(ba_cache, "MAX_GRAPHS", 2)
+    monkeypatch.setattr(ba_cache._CACHE, "MAX_GRAPHS", 2)
     st, pr, kw = _ba_case(dev, "localize", 2)
 
     def cached():
-        return [dict(key[2])["num_iterations"] for key in ba_cache._GRAPHS]
+        return [dict(key[2])["num_iterations"]
+                for key in ba_cache._CACHE.graphs]
 
     def check(n, ref):
         res = ba_cache.bundle_adjust(st, pr, **dict(kw, num_iterations=n))
@@ -1039,8 +1041,8 @@ def test_staged_sfm_with_ba_graphs_equals_eager(dev, ba_cache, monkeypatch):
     profiling.clear()
     assert counters["ba.graph_replays"] > 0
     assert "ba.eager_solves" not in counters
-    monkeypatch.setattr(ba_cache, "MAX_GRAPHS", 0)
-    ba_cache._GRAPHS.clear()
+    monkeypatch.setattr(ba_cache._CACHE, "MAX_GRAPHS", 0)
+    ba_cache._CACHE.graphs.clear()
     eager = run()
     assert _same_run(first, eager) and _same_run(second, eager)
 
@@ -1224,8 +1226,8 @@ def test_close_loops_same_bits_with_and_without_the_graph_cache(
     assert counters["pose_graph.eager_solves"] == 1
     assert counters["pose_graph.graph_captures"] == 1
     assert counters["pose_graph.graph_replays"] == 2
-    monkeypatch.setattr(pg_cache, "MAX_GRAPHS", 0)
     for cache in (pg_cache._SE3_GRAPHS, pg_cache._SIM3_GRAPHS):
+        monkeypatch.setattr(cache, "MAX_GRAPHS", 0)
         cache.graphs.clear()
     runs.append(run())
     (rs0, ts0, info0), *rest = runs

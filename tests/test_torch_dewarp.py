@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.core import cubic as jcubic
 from photogrammetry_tpu.kernels.remap import (
     apply_remap_pallas, build_remap_plan,

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.kernels.fast_stencil import (
     fast_score_map_pallas, fast_score_map_pallas_batch,
 )

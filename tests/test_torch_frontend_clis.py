@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_sample_idx
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.cli import cluster_features as jcluster_cli
 from photogrammetry_tpu.cli import detect_features as jdetect_cli
 from photogrammetry_tpu.cli import estimate_pose as jpose_cli
@@ -54,17 +55,6 @@ CPU = ["--device", "cpu"]
 # 1e-3 rad; where they do not (the pyramid case: 198 against 197, poses
 # 0.0069 rad apart), both poses are held to the ground truth instead.
 INLIER_SHARE = 0.05
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs in several worker processes on a
-    few cores, where the port's many small CPU ops slow down by an order
-    of magnitude when every process also starts a thread per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.ops import cluster as jcluster
 from photogrammetry_tpu.ops import match as jmatch
 from photogrammetry_tpu.ops import nms as jnms
@@ -34,17 +35,6 @@ from photogrammetry_tpu_torch.ops import cluster, match, nms
 from photogrammetry_tpu_torch.ops.fast import extract_keypoints
 from photogrammetry_tpu_torch.sfm import frontend
 from photogrammetry_tpu_torch.utils.padding import PaddedPoints
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs in several worker processes on a
-    few cores, where the port's many small CPU ops slow down by an order
-    of magnitude when every process also starts a thread per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def to_port(pts) -> PaddedPoints:

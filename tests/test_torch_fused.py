@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.sfm import incremental as jinc
 from photogrammetry_tpu.sfm.metrics import absolute_trajectory_error
 from photogrammetry_tpu.synth.star_scene import (
@@ -36,17 +37,6 @@ from photogrammetry_tpu_torch.utils.graphs import (
 from photogrammetry_tpu_torch.utils.indexing import put_row, take_row
 
 CFG = inc.SfmConfig(collect_diagnostics=False)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs in several worker processes on a
-    few cores, where the port's many small CPU ops slow down by an order
-    of magnitude when every process also starts a thread per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ from _torch_parity import (
     assert_same_up_to_sign, jax_sample_idx, jax_two_view_samples,
     rotation_angle_deg, direction_angle_deg,
 )
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.sfm import epipolar as jep
 from photogrammetry_tpu.sfm import homography as jho
 from photogrammetry_tpu.sfm import triangulate as jtr

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu_torch.kernels import brief_pack, fast_stencil, hamming
 from photogrammetry_tpu_torch.ops.fast import RING_OFFSETS
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu_torch.kernels import brief_pack, hamming, remap, schur
 from photogrammetry_tpu_torch.ops.match import (
     INT_INF, mutual_nearest_counts, mutual_nearest_matches,

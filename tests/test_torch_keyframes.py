@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_pnp_samples
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.sfm import frontend as jfront
 from photogrammetry_tpu.sfm import incremental as jinc
 from photogrammetry_tpu.sfm import keyframes as jkf
@@ -41,17 +42,6 @@ from photogrammetry_tpu_torch.utils.padding import PaddedPoints
 
 POSE_TOL = dict(rtol=0, atol=1e-4)
 RESCUE_POSE_TOL = dict(rtol=0, atol=1e-3)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs in several worker processes on a
-    few cores, where the port's many small CPU ops slow down by an order
-    of magnitude when every process also starts a thread per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_two_view_samples
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.sfm import loop_closure as jlc
 from photogrammetry_tpu.sfm.frontend import DescribedFrame as JaxFrame
 from photogrammetry_tpu.sfm.frontend import FrontendConfig as JaxConfig
@@ -53,17 +54,6 @@ CFG = FrontendConfig(detection_threshold=20.0, max_keypoints=256,
                      reduction="nms", suppression_radius=4.0,
                      hamming_threshold=80)
 ROT_TOL = dict(rtol=0, atol=1e-4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs in several worker processes on a
-    few cores, where the port's many small CPU ops slow down by an order
-    of magnitude when every process also starts a thread per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _yaw(a):

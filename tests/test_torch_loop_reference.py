@@ -1,5 +1,5 @@
 """The port's loop-closure stage against its plain float64 reference
-(``tests/_loop_reference.py``, the benchmark's ``reference/loop.py``):
+(the benchmark's ``benchmarks/reference/loop.py``, loaded by its path):
 the pair grid's counts, candidate selection, the trimmed bearing
 Procrustes, the SE(3) pose graph's LM, ``close_loops_stage`` end to end on
 a small out-and-back walk whose return leg is offset from the way out, and
@@ -25,13 +25,14 @@ Tolerances, each for its reason:
   rays.
 """
 import copy
+import importlib.util
 import pathlib
 
 import numpy as np
 import pytest
 import torch
 
-import _loop_reference as ref
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu_torch.cli import run_sfm
 from photogrammetry_tpu_torch.sfm import loop_closure as lc
 from photogrammetry_tpu_torch.sfm.frontend import (
@@ -47,24 +48,22 @@ from photogrammetry_tpu_torch.synth.star_scene import (
 from photogrammetry_tpu_torch.utils import profiling
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _load_reference():
+    """``benchmarks/reference/loop.py``, loaded by its path (``sys.path``
+    untouched)."""
+    path = ROOT / "benchmarks" / "reference" / "loop.py"
+    spec = importlib.util.spec_from_file_location("_loop_reference", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+ref = _load_reference()
 ROT_DEG = 2e-4
 OFFSET = np.array([0.0, 0.05, 0.0])     # the return leg's centre shift
 LOOP = dict(mode="rotation", min_gap=5, min_matches=30, max_edges=8)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs in several worker processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-def test_the_two_copies_are_one_file():
-    bench = ROOT / "benchmarks" / "reference" / "loop.py"
-    assert bench.read_bytes() == (ROOT / "tests" /
-                                  "_loop_reference.py").read_bytes()
 
 
 def _bits(seed, f=6, k=40, p=256):

@@ -8,6 +8,7 @@ import hashlib
 import numpy as np
 import pytest
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu import native as jax_native
 from photogrammetry_tpu_torch import native
 from photogrammetry_tpu_torch.kernels._build import BUILD_DIR

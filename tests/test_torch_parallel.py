@@ -19,6 +19,7 @@ import torch
 from _torch_dist_ranks import (
     ba_rank, initialize_rank, pod_mesh_rank, pose_graph_rank,
 )
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.parallel.dist_ba import (
     distributed_bundle_adjust as jax_dist_ba,
 )
@@ -44,15 +45,6 @@ JAX_MESH_DEVICES = 4
 # dispatches op by op: ~100 s a call)
 JAX_PG = jax.jit(jax_dist_pg, static_argnames=(
     "mesh", "num_iterations", "solver", "cg_iterations"))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread here too (the single-process references)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -16,20 +16,12 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu_torch.cli import bench_scaling, run_sfm
 from photogrammetry_tpu_torch.sfm.metrics import absolute_trajectory_error
 from photogrammetry_tpu_torch.synth.star_scene import (
     StarSceneConfig, generate_sequence,
 )
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread, as the CLI gives each spawned CPU rank."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

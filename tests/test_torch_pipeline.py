@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.cli import de_warp as jax_de_warp
 from photogrammetry_tpu.cli import pipeline_demo as jax_pipeline_demo
 from photogrammetry_tpu.io.draw import draw_squares as jax_draw_squares

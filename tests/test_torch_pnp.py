@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_pnp_samples, rotation_angle_deg
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.core.camera import normalize_pixels as jnorm
 from photogrammetry_tpu.sfm import pnp as jpnp
 from photogrammetry_tpu_torch.sfm import pnp

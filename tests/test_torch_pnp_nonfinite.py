@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from _torch_parity import assert_same_up_to_sign, jax_pnp_samples
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.sfm import epipolar as jep
 from photogrammetry_tpu.sfm import homography as jhom
 from photogrammetry_tpu.sfm import incremental as jinc

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.sfm import loop_closure as jlc
 from photogrammetry_tpu.sfm import pose_graph as jpg
 from photogrammetry_tpu_torch.convert import state_from_jax
@@ -27,17 +28,6 @@ JAC_TOL = dict(rtol=0, atol=1e-5)
 JAX_SE3_TERMS = jax.jit(jpg._edge_terms)
 JAX_SIM3_TERMS = jax.jit(jpg._sim3_edge_terms)
 POSE_TOL = dict(rtol=0, atol=1e-4)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs in several worker processes on a
-    few cores, where the port's many small CPU ops slow down by an order
-    of magnitude when every process also starts a thread per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _t(x):
@@ -263,7 +253,7 @@ def _key(monkeypatch, sim3=False, n=6, e=7, device="cpu",
 
     keys = []
 
-    def solve(cache, args, opts, max_graphs, max_seen):
+    def solve(cache, args, opts):
         keys.append((cache, graphs.loop_key(args, opts)))
         raise _Stop
 

@@ -41,6 +41,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_sample_idx
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from photogrammetry_tpu.sfm import epipolar as jep
 from photogrammetry_tpu.sfm import frontend as jf
@@ -62,17 +63,6 @@ from photogrammetry_tpu_torch.utils.padding import PaddedPoints
 CFG = jinc.SfmConfig()
 H = CFG.ransac_samples // 2
 THRESHOLD = CFG.ransac_threshold
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs in several worker processes on a
-    few cores, where the port's many small CPU ops slow down by an order
-    of magnitude when every process also starts a thread per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

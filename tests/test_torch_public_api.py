@@ -11,7 +11,8 @@ exactly; ``refine_subpixel`` within 1e-4 px (f32 window sums in two
 summation orders).  ``profiler_trace`` writes a trace file under its
 directory and nothing for ``None``.  Importing the subpackages builds no
 kernel and leaves ``torch.distributed.tensor`` unimported (bar
-``parallel``, whose modules need it).
+``parallel``, whose modules need it).  Every port test file runs torch on
+one thread through the one shared fixture.
 """
 import ast
 import importlib
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.core import camera as jcamera
 from photogrammetry_tpu.io import ply as jply
 from photogrammetry_tpu.ops import brief as jbrief
@@ -78,6 +80,28 @@ def test_every_jax_export_imports_from_the_port(sub):
     assert not missing, (sub, missing)
     assert set(getattr(pkg, "__all__", ())) >= \
         {n for n in names if n not in TPU_ONLY}
+
+
+def test_every_port_test_file_runs_torch_on_one_thread():
+    """Every ``tests/test_torch_*.py`` imports the one-thread fixture of
+    ``tests/_torch_threads.py`` (autouse, so its tests run on one torch
+    thread, as this one does), defines no fixture of its own and sets no
+    thread count itself."""
+    assert torch.get_num_threads() == 1
+    files = sorted((REPO / "tests").glob("test_torch_*.py"))
+    assert len(files) > 30
+    for path in files:
+        tree = ast.parse(path.read_text())
+        imported = {(node.module, alias.name) for node in tree.body
+                    if isinstance(node, ast.ImportFrom)
+                    for alias in node.names}
+        assert ("_torch_threads", "_one_thread") in imported, path.name
+        assert "_one_thread" not in {
+            node.name for node in ast.walk(tree)
+            if isinstance(node, ast.FunctionDef)}, path.name
+        assert "set_num_threads" not in {
+            node.attr for node in ast.walk(tree)
+            if isinstance(node, ast.Attribute)}, path.name
 
 
 def test_kernels_exports_the_entry_points():

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.sfm import frontend as jfront
 from photogrammetry_tpu.sfm import incremental as jinc
 from photogrammetry_tpu.synth.star_scene import (
@@ -38,17 +39,6 @@ JCFG = jfront.FrontendConfig(detection_threshold=20.0, max_keypoints=256,
                              reduction="nms", suppression_radius=4.0,
                              hamming_threshold=80)
 XY_TOL = 1e-4      # px at octave o, times 2^o in octave-0 pixels
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs in several worker processes on a
-    few cores, where the port's many small CPU ops slow down by an order
-    of magnitude when every process also starts a thread per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_pnp_samples
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.sfm import incremental as jinc
 from photogrammetry_tpu.sfm import metrics as jmetrics
 from photogrammetry_tpu.sfm.frontend import FrontendConfig as JaxConfig

@@ -28,6 +28,7 @@ import torch
 from _torch_parity import (
     direction_angle_deg, jax_two_view_samples, rotation_angle_deg,
 )
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.sfm.frontend import FrontendConfig as JaxConfig
 from photogrammetry_tpu.sfm.frontend import detect_and_describe as jax_dd
 from photogrammetry_tpu.sfm.frontend import make_pairs as jax_make_pairs

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.sfm import submaps as jsub
 from photogrammetry_tpu_torch.cli import run_sfm
 from photogrammetry_tpu_torch.sfm import submaps as sub
@@ -34,17 +35,6 @@ from photogrammetry_tpu_torch.synth.star_scene import (
 POSE_TOL = dict(rtol=0, atol=1e-4)
 REFINE_TOL = dict(rtol=0, atol=1e-3)
 K = np.array([[260.0, 0, 160], [0, 260.0, 120], [0, 0, 1]], np.float32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the suite runs in several worker processes on a
-    few cores, where the port's many small CPU ops slow down by an order
-    of magnitude when every process also starts a thread per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rotation(rng, scale):

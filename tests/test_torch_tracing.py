@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu_torch.utils import profiling
 
 STAGES = ("sfm.sequence", "sfm.frontend", "sfm.track", "sfm.bootstrap",
@@ -149,7 +150,6 @@ def pan6():
 def _sfm(pan6, cfg, recorded, **kwargs):
     from photogrammetry_tpu_torch.sfm.incremental import run_incremental_sfm
 
-    torch.set_num_threads(2)
     profiling.clear()
     scope = profiling.recording() if recorded else contextlib.nullcontext()
     with scope:

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_thread  # noqa: F401
 from photogrammetry_tpu.core import lie as jlie
 from photogrammetry_tpu.sfm import tracks as jtr
 from photogrammetry_tpu_torch.core import lie
